@@ -1,0 +1,79 @@
+"""The PyTorch port imports without JAX, Triton, nvcc or a card, builds
+nothing at import time, and its card entry point fails where there is no
+card instead of falling back to the CPU.
+"""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from paillier_halo2_tpu_torch.utils import kernels
+
+ROOT = Path(__file__).resolve().parents[1]
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import paillier_halo2_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+if {every}:
+    for name in names:
+        importlib.import_module(name)
+from paillier_halo2_tpu_torch.utils import kernels
+assert len(names) > 40, names
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+assert "paillier_halo2_tpu" not in sys.modules
+assert "triton" not in sys.modules
+assert kernels._lib is None  # nothing was built
+print("ok", len(names))
+"""
+
+
+def _clean_env() -> dict:
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+@pytest.mark.parametrize("every", [False, True], ids=["package", "every_module"])
+def test_import_pulls_in_no_jax(every):
+    res = subprocess.run(
+        [sys.executable, "-c", IMPORT_ALL.format(every=every)],
+        cwd=ROOT, env=_clean_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(where, tmp_path):
+    """With no CUDA device (here), or with none of the repo beside it, the
+    smoke script exits non-zero and prints no result line."""
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    env = _clean_env()
+    if where == "alone":
+        env.pop("PYTHONPATH")
+    res = subprocess.run(
+        [sys.executable, str(script)], cwd=script.parent, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout
+
+
+def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(kernels, "CUDA_NVCC", str(tmp_path / "nvcc"))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "kernels"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.build()
+
+
+def test_source_tag_covers_every_kernel_source():
+    names = {p.name for p in (ROOT / "paillier_halo2_tpu_torch" / "csrc").iterdir()}
+    assert names == set(kernels.SOURCES) | set(kernels.HEADERS)
+    assert len(kernels._source_tag()) == 16
