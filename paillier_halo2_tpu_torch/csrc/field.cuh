@@ -137,12 +137,11 @@ __device__ __forceinline__ void sub(uint32_t r[kLimbs], const uint32_t a[kLimbs]
   }
 }
 
-// r = a * b * 2^-256 mod p (CIOS). 64 32x32->64 multiply pairs per product.
-// r may alias a or b.
+// t[0..8] = (a*b + m*p) / R with m = -a*b*p^-1 mod R (CIOS), which is below
+// R + p for a, b < R. 64 32x32->64 multiply pairs for a*b and 64 for m*p.
 template <class F>
-__device__ __forceinline__ void mul(uint32_t r[kLimbs], const uint32_t a[kLimbs],
-                                    const uint32_t b[kLimbs]) {
-  uint32_t t[kLimbs + 2];
+__device__ __forceinline__ void redc_product(uint32_t t[kLimbs + 2], const uint32_t a[kLimbs],
+                                             const uint32_t b[kLimbs]) {
 #pragma unroll
   for (int k = 0; k < kLimbs + 2; k++) t[k] = 0u;
 #pragma unroll
@@ -170,7 +169,15 @@ __device__ __forceinline__ void mul(uint32_t r[kLimbs], const uint32_t a[kLimbs]
     t[kLimbs - 1] = (uint32_t)s;
     t[kLimbs] = t[kLimbs + 1] + (uint32_t)(s >> 32);
   }
-  // t[0..8] = (a*b + m*p) / R < R + p; one conditional subtract.
+}
+
+// r = a * b * 2^-256 mod p (CIOS), canonical for a, b < R: the product
+// above, then one conditional subtract. r may alias a or b.
+template <class F>
+__device__ __forceinline__ void mul(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                                    const uint32_t b[kLimbs]) {
+  uint32_t t[kLimbs + 2];
+  redc_product<F>(t, a, b);
   uint32_t d[kLimbs];
   uint32_t borrow = 0;
 #pragma unroll
@@ -182,6 +189,97 @@ __device__ __forceinline__ void mul(uint32_t r[kLimbs], const uint32_t a[kLimbs]
   bool ge = t[kLimbs] != 0 || borrow == 0;
 #pragma unroll
   for (int k = 0; k < kLimbs; k++) r[k] = ge ? d[k] : t[k];
+}
+
+// ---------------------------------------------------------------------------
+// The redundant form: a field element held as any integer in [0, 2p).
+//
+// Counterpart of the lazy signed digits of paillier_halo2_tpu/ff/lazy_mont.py
+// (`lmul`, `lreduce`, `canonicalize`, :121-219). The TPU needed those because
+// its vector unit has no carry chain; Hopper has one, so here a value keeps
+// its 8 x 32-bit limbs and only gives up the final normalisation: no
+// conditional subtraction after a product, one canonicalisation where a
+// pipeline ends.
+//
+// Invariant: every operand and every result is an integer in [0, 2p).
+// Proof, with p / R < 0.1891 for both Fr and Fq (top limb 0x30644e72), so
+// 4p < R = 2^256:
+//  - mul_lazy: for a, b < 2p the CIOS result is t = (a*b + m*p) / R with
+//    m < R, so t < (4p^2 + R*p) / R = p * (1 + 4p/R) < 1.757 p < 2p. The
+//    value is a*b*R^-1 mod p up to one multiple of p, and t < R means the
+//    ninth word t[8] is 0.
+//  - add_lazy: a + b < 4p < R never carries out of 256 bits; subtracting 2p
+//    once when a + b >= 2p lands in [0, 2p).
+//  - sub_lazy: a - b lies in (-2p, 2p); adding 2p when it borrows lands in
+//    (0, 2p). This is a - b + 2p followed by one conditional subtraction of
+//    2p, written as the branch that is taken.
+// Exact zero stays exact zero: 0 * b gives t = 0 (every m is 0), 0 + 0 = 0
+// and 0 - 0 = 0, so the point kernels' infinity test Z == 0 stays a plain
+// limb test inside a pipeline. A value that is zero mod p but not 0 (p
+// itself) is what a broken nodouble contract leaves in Z; the pipeline's exit
+// (`canonicalize` in ff/lazy_mont.py, plain torch) maps it to 0.
+// ---------------------------------------------------------------------------
+
+// Limb i of 2p (p's limbs shifted left by one; the compiler folds it).
+template <class F>
+__device__ __forceinline__ uint32_t p2(int i) {
+  return (F::p(i) << 1) | (i ? F::p(i - 1) >> 31 : 0u);
+}
+
+// r = a * b * 2^-256 + k*p, k in {0, 1}: in [0, 2p) for a, b in [0, 2p).
+// r may alias a or b.
+template <class F>
+__device__ __forceinline__ void mul_lazy(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                                         const uint32_t b[kLimbs]) {
+  uint32_t t[kLimbs + 2];
+  redc_product<F>(t, a, b);
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) r[k] = t[k];
+}
+
+// r = a + b, minus 2p if that is >= 2p. r may alias a or b.
+template <class F>
+__device__ __forceinline__ void add_lazy(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                                         const uint32_t b[kLimbs]) {
+  uint32_t s[kLimbs], d[kLimbs];
+  uint32_t carry = 0;
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) {
+    uint64_t t = (uint64_t)a[k] + b[k] + carry;
+    s[k] = (uint32_t)t;
+    carry = (uint32_t)(t >> 32);
+  }
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) {
+    uint64_t t = (uint64_t)s[k] - p2<F>(k) - borrow;
+    d[k] = (uint32_t)t;
+    borrow = (uint32_t)(t >> 63);
+  }
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) r[k] = borrow ? s[k] : d[k];
+}
+
+// r = a - b, plus 2p if that borrows. r may alias a or b.
+template <class F>
+__device__ __forceinline__ void sub_lazy(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                                         const uint32_t b[kLimbs]) {
+  uint32_t d[kLimbs];
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) {
+    uint64_t t = (uint64_t)a[k] - b[k] - borrow;
+    d[k] = (uint32_t)t;
+    borrow = (uint32_t)(t >> 63);
+  }
+  uint32_t mask = 0u - borrow;
+  uint64_t carry = 0;
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) {
+    uint64_t t = (uint64_t)d[k] + (p2<F>(k) & mask) + carry;
+    r[k] = (uint32_t)t;
+    carry = t >> 32;
+  }
 }
 
 }  // namespace pht

@@ -200,6 +200,27 @@ def from_ref_digits(d, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(limbs).view(np.int32)).to(device)
 
 
+def from_lazy_digits(spec: FieldSpec, d, device) -> torch.Tensor:
+    """JAX-package lazy digits (32, N) — signed base-256 digits held as int16
+    or f32, value sum_i d_i 256^i, possibly negative or above p
+    (`paillier_halo2_tpu/ff/lazy_mont.py:10-19`) -> (8, N) limbs of that
+    value mod p, canonical. The lazy counterpart of `from_ref_digits`."""
+    d = np.asarray(d).astype(np.int64)
+    digits = np.empty(d.shape, np.uint8)
+    carry = np.zeros(d.shape[1:], np.int64)
+    for i in range(d.shape[0]):  # signed carry pass: digits to [0, 255]
+        v = d[i] + carry
+        digits[i] = v & 0xFF
+        carry = v >> 8  # floor division: the carry keeps the sign
+    raw = np.ascontiguousarray(digits.T).tobytes()
+    n = d.shape[1]
+    vals = [
+        (int.from_bytes(raw[32 * j : 32 * j + 32], "little") + (int(carry[j]) << 256)) % spec.p
+        for j in range(n)
+    ]
+    return pack_ints(vals, device)
+
+
 def to_ref_digits(t: torch.Tensor) -> np.ndarray:
     """(8, *batch) limbs -> JAX-package digits (32, *batch) uint32."""
     u = t.detach().to("cpu").contiguous().numpy().view(np.uint32)

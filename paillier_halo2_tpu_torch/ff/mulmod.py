@@ -18,13 +18,14 @@ LAUNCHES = {"mont_mul": 0}
 _FIELD_IDS = {"Fr": 0, "Fq": 1}
 
 
-def mont_mul_plain(spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in plain torch: CIOS with a's 32-bit limbs times
+def redc_plain(spec, a: torch.Tensor, b: torch.Tensor):
+    """u = (a*b + m*p) / R with m = -a*b*p^-1 mod R, for (8, N) int32 limb
+    tensors a, b below R, in plain torch: CIOS with a's 32-bit limbs times
     b's 16-bit half-limbs, accumulated in int64 16-bit columns with lazy
-    carries (each column stays below 2^53). It computes u = (a*b + m*p) / R
-    with m = -a*b*p^-1 mod R, then subtracts p once if u >= p — the value
-    the kernel's 32-bit CIOS computes. Works on any device; the wrapper
-    takes it for CPU tensors."""
+    carries (each column stays below 2^53), then one exact carry pass.
+    Returns u's eight 32-bit limbs as int64 (N,) tensors and its bit 256
+    (u < R + p). The value is unique, so it is the one the kernels' 32-bit
+    CIOS computes."""
     n = a.shape[1]
     a32 = u64(a)  # (8, N)
     bu = u64(b)
@@ -38,20 +39,29 @@ def mont_mul_plain(spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         m = ((t[j] & M16) * inv16) & M16
         w.addcmul_(p32, m)
         t[j + 1] += t[j] >> 16  # column j is now 0 mod 2^16
-    # t[16:33] are the 16-bit columns of u < R + p (each below 2^53): one
-    # exact carry pass packs them into 32-bit limbs and compares with p
+    # t[16:33] are the 16-bit columns of u (each below 2^53)
     c = t[16] >> 16
     lo = t[16] & M16
-    u, d, bw = [], [], 0
+    u = []
     for k in range(8):
         v = t[17 + 2 * k] + c
         u.append(lo | ((v & M16) << 16))
         v = t[18 + 2 * k] + (v >> 16)
         lo, c = v & M16, v >> 16
+    return u, lo  # lo: bit 256 of u
+
+
+def mont_mul_plain(spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain torch: u = `redc_plain(a, b)`, minus p
+    once if u >= p. Works on any device; the wrapper takes it for CPU
+    tensors."""
+    u, top = redc_plain(spec, a, b)
+    d, bw = [], 0
+    for k in range(8):
         x = u[k] - spec.p_limbs[k] - bw
         d.append(x & M32)
         bw = (x >> 32) & 1
-    ge = (lo != 0) | (bw == 0)  # lo: bit 256 of u
+    ge = (top != 0) | (bw == 0)
     return to_i32(torch.where(ge, torch.stack(d), torch.stack(u)))
 
 

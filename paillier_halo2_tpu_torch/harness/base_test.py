@@ -7,7 +7,6 @@ only (the MockProver `run` is not ported yet). Builder API:
 """
 from __future__ import annotations
 
-from ..plonk.kzg import DEFAULT_WINDOW_BITS
 from ..plonk.params import BLINDING_ROWS, ConfigParams
 
 __all__ = ["BLINDING_ROWS", "BaseTester", "ConfigParams", "base_test"]
@@ -18,9 +17,8 @@ class BaseTester:
         self._k = 16
         self._lookup_bits = 15
         self._expect_satisfied = True
-        self._device = "cpu"
+        self._device = "cuda"  # CPU callers ask with .device("cpu")
         self._params_dir: str | None = None
-        self._window_bits = DEFAULT_WINDOW_BITS
 
     def k(self, k: int) -> "BaseTester":
         self._k = k
@@ -42,10 +40,6 @@ class BaseTester:
         self._params_dir = path
         return self
 
-    def window_bits(self, bits: int) -> "BaseTester":
-        self._window_bits = bits
-        return self
-
     def bench_builder(self, init_input, logic_input, circuit_fn):
         """Full prove/verify pipeline — the reference's
         `.bench_builder(init_input, input, f)` (upstream src/bench.rs:161-171):
@@ -55,7 +49,7 @@ class BaseTester:
         from .bench import bench_builder as _bench
 
         stats = _bench(self._k, self._lookup_bits, init_input, logic_input, circuit_fn,
-                       self._device, self._params_dir, self._window_bits)
+                       self._device, self._params_dir)
         if self._expect_satisfied and not stats.verified:
             raise AssertionError("proof did not verify")
         return stats

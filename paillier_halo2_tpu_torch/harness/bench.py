@@ -6,7 +6,8 @@ discovery, SRS load or creation, keygen, witness synthesis, proof creation
 and verification, reporting the same stat fields: keygen splits into
 `keygen_vk_time` (fixed-poly commitments, the verifying-key half) and
 `keygen_pk_time` (layout + coefficient forms), and witness synthesis has its
-own `witness_time`. Every device tensor lives on `device`.
+own `witness_time`. Every device tensor lives on `device`, the card unless
+the caller passes "cpu".
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ import torch
 from ..gadgets.context import Context
 from ..gadgets.range import RangeChip
 from ..plonk.keygen import keygen
-from ..plonk.kzg import DEFAULT_WINDOW_BITS
 from ..plonk.params import ConfigParams
 from ..plonk.prover import create_proof
 from ..plonk.srs import read_or_create_srs
@@ -67,9 +67,8 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def bench_builder(k: int, lookup_bits: int, init_input, logic_input, circuit_fn, device="cpu",
-                  params_dir: str | None = None, window_bits: int = DEFAULT_WINDOW_BITS
-                  ) -> BenchStats:
+def bench_builder(k: int, lookup_bits: int, init_input, logic_input, circuit_fn, device="cuda",
+                  params_dir: str | None = None) -> BenchStats:
     """circuit_fn(ctx, range_chip, input) builds the circuit, as the closure
     at upstream src/bench.rs:165-171. `params_dir` holds the SRS cache."""
     # Phase A: shape discovery with the init input.
@@ -81,7 +80,7 @@ def bench_builder(k: int, lookup_bits: int, init_input, logic_input, circuit_fn,
     srs = read_or_create_srs(k, device=device, params_dir=params_dir)
     _sync(device)
     t1 = time.monotonic()
-    pk = keygen(shape_table, k, lookup_bits, srs, window_bits)
+    pk = keygen(shape_table, k, lookup_bits, srs)
     _sync(device)
     t2 = time.monotonic()
     vk_share = pk.phase_times["commit"]

@@ -1,24 +1,34 @@
-"""Pippenger multi-scalar multiplication with unsigned windows.
+"""Pippenger multi-scalar multiplication, on two routes that give the same
+points.
 
-Counterpart of `paillier_halo2_tpu/msm/pippenger.py:1`, canonical (non-lazy)
-path — the one the JAX package takes with `PAILLIER_TPU_LAZY=0` and on CPU
-(`pippenger.py:324-330`, `:370-375`):
+Counterpart of `paillier_halo2_tpu/msm/pippenger.py:1`:
 
-- window keys slice straight out of the scalar limbs (window bits divide 8);
-- bucket accumulation sorts each window's keys and runs gather-rounds: round
-  r gathers, for every (window, bucket, sub-accumulator) lane, the next point
-  of that bucket's sorted run as a packed row and adds it with K4 under
-  `nodouble` (bases are distinct);
-- the sub-accumulators merge in a log-depth roll-and-add tree (K2, nodouble);
-- window sums T_w = sum_b b * B_{w,b} by a Hillis-Steele suffix scan and
-  reduction over the bucket axis (K2, full);
-- the Horner combine of the window sums runs on the host.
+- the signed route, the one the JAX package takes on its accelerator
+  (`_use_lazy()`, `pippenger.py:67-73`): c-bit signed windows
+  (`_signed_keys`, c from `_signed_window_bits`), 2^(c-1)+1 buckets per
+  window, per-window sub-accumulator counts and bucket caps
+  (`_sub_schedule_signed`); the bucket loop adds +-P with K5 on
+  redundant-form accumulators (`ec/lazy_point.py`), the sub-accumulators
+  merge with K6, and one canonicalisation ends it (`:309-323`, `:347-369`,
+  `:394-397`);
+- the unsigned route (`PAILLIER_TPU_LAZY=0` there, and its CPU route):
+  window bits that divide 8, keys sliced straight out of the scalar limbs,
+  K4 under `nodouble` in the bucket loop and K2 `nodouble` in the merge.
 
-The round count is data-dependent (a `lax.while_loop` in the JAX package);
-here it costs one host readback per MSM. Lanes are ordered by the number of
-rounds they need, so round r runs K4 on a prefix of the lanes — lanes whose
-runs have ended do no work. Commitments are points, so the schedule changes
-no result.
+Both then weight the buckets into window sums T_w = sum_b b * B_{w,b} with a
+Hillis-Steele suffix scan and reduction (K2, full), and combine the windows
+by Horner on the host. The route follows the device, as `_use_lazy()` does:
+signed on a CUDA tensor, unsigned on a CPU tensor; `signed=` asks for either
+on either.
+
+Bucket accumulation sorts each window's keys and runs gather-rounds: round r
+gathers, for every (window, bucket, sub-accumulator) lane, the next point of
+that bucket's sorted run as a packed row and adds it (bases are distinct,
+hence `nodouble`). The round count is data-dependent (a `lax.while_loop` in
+the JAX package); here it costs one host readback per call. Lanes are ordered
+by the number of rounds they need, so round r runs on a prefix of the lanes —
+lanes whose runs have ended do no work. The sub-accumulators merge in a
+halving tree. Commitments are points, so the schedule changes no result.
 """
 from __future__ import annotations
 
@@ -27,10 +37,12 @@ import torch
 
 from ..ec import bn254
 from ..ec import host as ech
+from ..ec import lazy_point as lzp
 from ..ff import field as f
 from ..ff.limbs16 import u64
 
 N_LIMBS = 8
+MAX_LANES = 1 << 21  # bucket lanes per call on the signed route (`pippenger.py:485-488`)
 
 
 def _keys_from_digits(scalar_limbs: torch.Tensor, window_bits: int) -> torch.Tensor:
@@ -73,43 +85,113 @@ def _sub_schedule(n_windows: int, window_bits: int, s_base: int, s_cap: int) -> 
     return tuple(out)
 
 
-def _bucket_accumulate(px, py, p_inf, keys, window_bits: int, subs: tuple[int, ...]):
+def _signed_window_bits(n: int) -> int:
+    """Signed window size for n points (`pippenger.py:435-452`): 8 below
+    2^16 points, 9 below 2^19, 11 from 2^19 up."""
+    if n >= 1 << 19:
+        return 11
+    if n >= 1 << 16:
+        return 9
+    return 8
+
+
+def _signed_keys(scalar_limbs: torch.Tensor, c: int):
+    """Signed window recoding (`pippenger.py:124-155`): (..., 8, N)
+    standard-form scalar limbs -> bucket keys (..., W, N) int64 in
+    [0, 2^(c-1)] and negation masks (..., W, N) bool, W = ceil(256 / c),
+    with scalar = sum_w (-1)^neg_w * key_w * 2^(c*w). No carry escapes the
+    top window for scalars below 2^254."""
+    n_windows = -(-256 // c)
+    u = u64(scalar_limbs)
+    mask = (1 << c) - 1
+    raw = []
+    for w in range(n_windows):
+        i, sh = divmod(c * w, 32)
+        k = u[..., i, :] >> sh
+        spill = c - (32 - sh)  # bits that come from the next limb
+        if spill > 0 and i + 1 < N_LIMBS:
+            k = k | ((u[..., i + 1, :] & ((1 << spill) - 1)) << (32 - sh))
+        raw.append(k & mask)
+    half = 1 << (c - 1)
+    carry = torch.zeros_like(raw[0])
+    keys, negs = [], []
+    for w in range(n_windows):
+        k = raw[w] + carry  # <= 2^c
+        over = k > half
+        digit = torch.where(over, k - (1 << c), k)
+        carry = over.to(torch.int64)
+        negs.append(digit < 0)
+        keys.append(digit.abs())
+    return torch.stack(keys, dim=-2), torch.stack(negs, dim=-2)
+
+
+def _sub_schedule_signed(n_windows: int, c: int, s_base: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Per-window (sub-accumulator counts, bucket caps) for signed windows
+    (`pippenger.py:163-186`). The top windows' keys take only
+    V = (r >> c*w) + carry values, so their bucket lanes are capped at V
+    and their sub-accumulator counts grow by about 2^(c-1) / V instead."""
+    n_buckets = (1 << (c - 1)) + 1
+    subs, bcaps = [], []
+    for w in range(n_windows):
+        v = min(n_buckets, (ech.R >> (c * w)) + 3)
+        overload = n_buckets / v
+        s = s_base
+        while s < s_base * overload and s < 4096:
+            s *= 2
+        subs.append(s)
+        bcaps.append(v)
+    return tuple(subs), tuple(bcaps)
+
+
+def _lanes_per_poly(subs, bcaps) -> int:
+    return sum(s * b for s, b in zip(subs, bcaps))
+
+
+def _bucket_accumulate(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...],
+                       bcaps: tuple[int, ...] | None = None, neg=None, stats=None):
     """Per-(window, bucket) sums. px/py: (8, N) affine Montgomery bases; p_inf:
-    (N,) bool; keys: (W, N) window keys. Returns Jacobian buckets, each
-    coordinate (8, W, 2^window_bits). Bases must be pairwise distinct."""
+    (N,) bool; keys: (W, N) keys in [0, n_buckets); neg: (W, N) bool
+    negation masks, which select the signed route (K5, K6 and a final
+    canonicalisation; else K4 and K2). bcaps[w] caps window w's bucket lanes
+    (its keys stay below it); the buckets above a cap are infinity. Returns
+    canonical Jacobian buckets, each coordinate (8, W, n_buckets). Bases
+    must be pairwise distinct."""
+    lazy = neg is not None
     device = px.device
     n = px.shape[1]
     n_windows = keys.shape[0]
-    n_buckets = 1 << window_bits
     assert len(subs) == n_windows
+    if bcaps is None:
+        bcaps = (n_buckets,) * n_windows
     packed = bn254.pack_points_dense(px, py)  # (N, 16)
     keys = torch.where(p_inf[None, :], 0, keys.to(torch.int64))
     logn = max((n - 1).bit_length(), 1)
     lane = torch.arange(n, dtype=torch.int64, device=device)
     sk = torch.sort((keys << logn) | lane[None, :], dim=1).values  # stable by lane
     sorted_keys = (sk >> logn).contiguous()
-    order_flat = (sk & ((1 << logn) - 1)).reshape(-1)
+    order = sk & ((1 << logn) - 1)
+    order_flat = order.reshape(-1)
 
     targets = torch.arange(n_buckets, dtype=torch.int64, device=device).expand(n_windows, -1)
     seg_start = torch.searchsorted(sorted_keys, targets.contiguous())
     counts = torch.searchsorted(sorted_keys, targets.contiguous(), right=True) - seg_start
     counts[:, 0] = 0  # bucket 0 contributes nothing
 
-    # Static lane maps: windows grouped by sub-count into rectangular blocks
-    # (rows, buckets, subs), flattened C-order onto one lane axis.
-    blocks: list[tuple[int, list[int]]] = []
-    for w in sorted(range(n_windows), key=lambda w: subs[w]):
-        if blocks and blocks[-1][0] == subs[w]:
-            blocks[-1][1].append(w)
+    # Static lane maps: windows grouped by (sub-count, bucket cap) into
+    # rectangular blocks (rows, bcap, subs), flattened C-order onto one axis.
+    blocks: list[tuple[int, int, list[int]]] = []
+    for w in sorted(range(n_windows), key=lambda w: (subs[w], bcaps[w])):
+        if blocks and blocks[-1][:2] == (subs[w], bcaps[w]):
+            blocks[-1][2].append(w)
         else:
-            blocks.append((subs[w], [w]))
+            blocks.append((subs[w], bcaps[w], [w]))
     win_np, bkt_np, sub_np, nsub_np = [], [], [], []
-    for s, rows in blocks:
+    for s, bc, rows in blocks:
         nr = len(rows)
-        win_np.append(np.repeat(np.array(rows, np.int64), n_buckets * s))
-        bkt_np.append(np.tile(np.repeat(np.arange(n_buckets, dtype=np.int64), s), nr))
-        sub_np.append(np.tile(np.arange(s, dtype=np.int64), nr * n_buckets))
-        nsub_np.append(np.full(nr * n_buckets * s, s, np.int64))
+        win_np.append(np.repeat(np.array(rows, np.int64), bc * s))
+        bkt_np.append(np.tile(np.repeat(np.arange(bc, dtype=np.int64), s), nr))
+        sub_np.append(np.tile(np.arange(s, dtype=np.int64), nr * bc))
+        nsub_np.append(np.full(nr * bc * s, s, np.int64))
     as_t = lambda parts: torch.from_numpy(np.concatenate(parts)).to(device)  # noqa: E731
     win_map, bkt_map, sub_map, nsub_map = (as_t(x) for x in (win_np, bkt_np, sub_np, nsub_np))
     n_lanes = win_map.shape[0]
@@ -119,46 +201,66 @@ def _bucket_accumulate(px, py, p_inf, keys, window_bits: int, subs: tuple[int, .
     # rounds each lane needs; order lanes by it so round r is a lane prefix
     need = torch.clamp(counts_l - sub_map + nsub_map - 1, min=0) // nsub_map
     perm = torch.argsort(need, descending=True, stable=True)
-    hist = torch.bincount(need).cpu().tolist()  # the one readback per MSM
+    hist = torch.bincount(need).cpu().tolist()  # the one readback per call
     active = [sum(hist[r + 1 :]) for r in range(len(hist) - 1)]
     seg_p, counts_p, sub_p, nsub_p, win_p = (
         x[perm] for x in (seg_l, counts_l, sub_map, nsub_map, win_map)
     )
+    if stats is not None:
+        for key, v in (("lanes", n_lanes), ("rounds", len(active)), ("lane_rounds", sum(active))):
+            stats[key] = stats.get(key, 0) + v
 
-    acc = _inf_points(n_lanes, device)
+    if lazy:
+        neg_sorted = torch.gather(neg, 1, order).reshape(-1)  # by sorted position
+        acc = lzp.inf_acc(n_lanes, device)
+    else:
+        acc = _inf_points(n_lanes, device)
     for r, m in enumerate(active):
         j = sub_p[:m] + r * nsub_p[:m]  # index within the bucket's sorted run
-        pos = torch.clamp(seg_p[:m] + j, 0, n - 1)
-        idx = order_flat[win_p[:m] * n + pos]  # original point indices
-        rows = packed.index_select(0, idx)  # (m, 16)
+        at = win_p[:m] * n + torch.clamp(seg_p[:m] + j, 0, n - 1)
+        rows = packed.index_select(0, order_flat[at])  # (m, 16)
         mask_off = j >= counts_p[:m]
-        out = bn254.padd_mixed_packed(tuple(c[:, :m] for c in acc), rows, mask_off, nodouble=True)
+        lanes = tuple(c[:, :m].contiguous() for c in acc)
+        if lazy:
+            out = lzp.padd_mixed_packed_lazy(*lanes, rows, mask_off, neg_sorted[at])
+        else:
+            out = bn254.padd_mixed_packed(lanes, rows, mask_off, nodouble=True)
         for c, o in zip(acc, out):
             c[:, :m] = o
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(n_lanes, dtype=perm.dtype, device=device)
     acc = tuple(c.index_select(1, inv) for c in acc)
 
-    # Merge each block's S sub-accumulators with a log-depth roll-and-add
-    # fold (step i only needs lanes < S >> i right), then restore the
-    # window-row order.
+    # Merge each block's S sub-accumulators in a halving tree (S is a power
+    # of two), pad capped windows' dead buckets with infinity, then restore
+    # the window-row order.
     parts = []
     row_order: list[int] = []
     off = 0
-    for s, rows in blocks:
+    for s, bc, rows in blocks:
         nr = len(rows)
-        lb = nr * n_buckets * s
-        blk = tuple(c[:, off : off + lb].reshape(N_LIMBS, nr, n_buckets, s) for c in acc)
-        for i in range(s.bit_length() - 1):
-            half = s >> (i + 1)
-            shifted = tuple(torch.roll(c, -half, dims=3) for c in blk)
-            blk = bn254.padd(blk, shifted, nodouble=True)
-        parts.append(tuple(c[..., 0] for c in blk))  # (8, nr, n_buckets)
+        lb = nr * bc * s
+        blk = tuple(c[:, off : off + lb].reshape(N_LIMBS, nr, bc, s) for c in acc)
+        half = s
+        while half > 1:
+            half //= 2
+            lo = tuple(c[..., :half].contiguous().reshape(N_LIMBS, -1) for c in blk)
+            hi = tuple(c[..., half:].contiguous().reshape(N_LIMBS, -1) for c in blk)
+            if lazy:
+                out = lzp.padd_lazy(lo, hi)
+            else:
+                out = bn254.padd(lo, hi, nodouble=True)
+            blk = tuple(c.reshape(N_LIMBS, nr, bc, half) for c in out)
+        first = torch.stack([c[..., 0] for c in blk])  # (3, 8, nr, bc)
+        if bc < n_buckets:
+            first = torch.nn.functional.pad(first, (0, n_buckets - bc))
+        parts.append(first)
         row_order.extend(rows)
         off += lb
-    merged = tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))
+    merged = torch.cat(parts, dim=2)
     inv_rows = torch.from_numpy(np.argsort(np.array(row_order))).to(device)
-    return tuple(c.index_select(1, inv_rows) for c in merged)
+    merged = tuple(merged[i].index_select(1, inv_rows) for i in range(3))
+    return lzp.canonicalize_jp(*merged) if lazy else merged
 
 
 def _window_sums(buckets, n_buckets: int):
@@ -185,44 +287,84 @@ def _window_sums(buckets, n_buckets: int):
     return tuple(c[:, :, 0] for c in t)
 
 
-def msm_packed_multi(px, py, p_inf, scalars, window_bits: int = 8,
-                     s_base: int | None = None, s_cap: int | None = None) -> list[ech.Point]:
+def msm_packed_multi(px, py, p_inf, scalars, window_bits: int | None = None,
+                     s_base: int | None = None, s_cap: int | None = None,
+                     signed: bool | None = None, stats: dict | None = None) -> list[ech.Point]:
     """Batched MSMs sharing one base set. scalars: (P, 8, N) standard-form
-    limbs; returns P host affine results. The poly axis folds into the
-    window axis, so P commitments share one bucket loop."""
+    limbs, each scalar below r; returns P host affine results. The poly axis
+    folds into the window axis, so P commitments share one bucket loop; on
+    the signed route a call holds at most MAX_LANES bucket lanes and takes
+    the polys in groups. `signed` picks the route (default: signed on a CUDA
+    tensor); `window_bits` defaults to `_signed_window_bits(N)` there and to
+    8 on the unsigned route; `s_cap` bounds the unsigned route's
+    sub-accumulators only. `stats`, if given, gains the calls' bucket lanes,
+    rounds and lane-rounds (the lanes that the bucket-loop launches add).
+
+    The signed route relies on scalars below r: the top windows' bucket caps
+    and the carry out of the top window hold only below it, and an
+    unreduced scalar would lose its top bucket with no other sign. So it
+    raises ValueError on a scalar whose top limb exceeds r's, which is
+    enough: such a top limb keeps every capped window's key within its cap
+    and the scalar below 2^254."""
     assert scalars.dim() == 3
-    n_polys = scalars.shape[0]
-    if s_base is None or s_cap is None:
-        d_base, d_cap = default_schedule(px.device)
-        s_base = d_base if s_base is None else s_base
-        s_cap = d_cap if s_cap is None else s_cap
-    keys = _keys_from_digits(scalars, window_bits)  # (P, W, N)
-    n_windows = keys.shape[1]
-    keys = keys.reshape(n_polys * n_windows, -1)
-    subs = _sub_schedule(n_windows, window_bits, s_base, s_cap) * n_polys  # row = p*W + w
-    buckets = _bucket_accumulate(px, py, p_inf, keys, window_bits, subs)
-    tw = _window_sums(buckets, 1 << window_bits)
+    n_polys, n = scalars.shape[0], scalars.shape[2]
+    if signed is None:
+        signed = px.device.type == "cuda"
+    d_base, d_cap = default_schedule(px.device)
+    s_base = d_base if s_base is None else s_base
+    s_cap = d_cap if s_cap is None else s_cap
+    if signed:
+        if n and int(u64(scalars[:, N_LIMBS - 1]).max()) > ech.R >> 224:
+            raise ValueError("the signed MSM route needs scalars below r")
+        c = window_bits or _signed_window_bits(n)
+        n_windows = -(-256 // c)
+        n_buckets = (1 << (c - 1)) + 1
+        subs, bcaps = _sub_schedule_signed(n_windows, c, s_base)
+        group = max(1, MAX_LANES // _lanes_per_poly(subs, bcaps))
+        if n_polys > group:
+            out = []
+            for i in range(0, n_polys, group):
+                out.extend(msm_packed_multi(px, py, p_inf, scalars[i : i + group], c, s_base,
+                                            s_cap, True, stats))
+            return out
+        keys, neg = _signed_keys(scalars, c)  # (P, W, N) each
+        buckets = _bucket_accumulate(
+            px, py, p_inf, keys.reshape(n_polys * n_windows, n), n_buckets, subs * n_polys,
+            bcaps * n_polys, neg.reshape(n_polys * n_windows, n), stats,
+        )
+    else:
+        c = window_bits or 8
+        keys = _keys_from_digits(scalars, c)  # (P, W, N)
+        n_windows = keys.shape[1]
+        n_buckets = 1 << c
+        subs = _sub_schedule(n_windows, c, s_base, s_cap) * n_polys  # row = p*W + w
+        buckets = _bucket_accumulate(px, py, p_inf, keys.reshape(n_polys * n_windows, n),
+                                     n_buckets, subs, stats=stats)
+    tw = _window_sums(buckets, n_buckets)
     pts = bn254.unpack_jacobian(tw)  # (P*W) window sums, poly-major
     out = []
     for pi in range(n_polys):
         acc = None
         for p in reversed(pts[pi * n_windows : (pi + 1) * n_windows]):
-            for _ in range(window_bits):
+            for _ in range(c):
                 acc = ech.g1_double(acc)
             acc = ech.g1_add(acc, p)
         out.append(acc)
     return out
 
 
-def msm_packed(px, py, p_inf, scalar_limbs, window_bits: int = 8) -> ech.Point:
-    """MSM over packed affine bases and (8, N) standard-form scalar limbs;
-    the result is a host affine point."""
-    return msm_packed_multi(px, py, p_inf, scalar_limbs[None], window_bits)[0]
+def msm_packed(px, py, p_inf, scalar_limbs, window_bits: int | None = None,
+               signed: bool | None = None, stats: dict | None = None) -> ech.Point:
+    """MSM over packed affine bases and (8, N) standard-form scalar limbs,
+    each below r; the result is a host affine point."""
+    return msm_packed_multi(px, py, p_inf, scalar_limbs[None], window_bits, signed=signed,
+                            stats=stats)[0]
 
 
-def msm(points: list[ech.Point], scalars: list[int], device, window_bits: int = 8) -> ech.Point:
+def msm(points: list[ech.Point], scalars: list[int], device="cuda",
+        window_bits: int | None = None, signed: bool | None = None) -> ech.Point:
     """Convenience entry: host points + host int scalars."""
     assert len(points) == len(scalars)
     px, py, p_inf = bn254.pack_affine(points, device)
     sd = f.pack_ints([s % ech.R for s in scalars], device)
-    return msm_packed(px, py, p_inf, sd, window_bits)
+    return msm_packed(px, py, p_inf, sd, window_bits, signed)

@@ -1,13 +1,14 @@
 """ctypes bindings for the native BN254 host engine.
 
 Counterpart of `paillier_halo2_tpu/native/__init__.py:1`. The C++ source is
-the JAX package's `paillier_halo2_tpu/native/bn254.cpp`, compiled BY PATH with
-g++ into the gitignored `build/native/` directory at the repository root (keyed
-by a hash of the source), so the port neither duplicates it nor imports the
-JAX package. The port uses the engine for host work only: `ec/host` scalar
-multiplications and additions, and the verifier's pairing check. Import never
-fails: without a compiler `lib()` returns None and callers take the
-pure-Python host path.
+the port's own copy, `native/bn254.cpp` beside this file (the JAX package's
+engine, unchanged), compiled with g++ into the gitignored `build/native/`
+directory at the repository root, keyed by a hash of the source. The port uses
+the engine for host work: `ec/host` scalar multiplications and additions, the
+verifier's pairing check, and the KZG commitments of a CPU proof
+(`g1_msm_raw`, from `plonk/kzg.py`). Import never fails: without a compiler
+`lib()` returns None; the host point operations then take the pure-Python
+path, and a CPU commitment raises.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import os
 import subprocess
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO, "paillier_halo2_tpu", "native", "bn254.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bn254.cpp")
 _BUILD_DIR = os.path.join(_REPO, "build", "native")
 
 _lib = None
@@ -131,6 +132,20 @@ def g1_mul(p, k: int):
     out = ctypes.create_string_buffer(64)
     oinf = ctypes.c_int()
     lib().g1_mul_c(pb, pi, kb, len(kb), out, ctypes.byref(oinf))
+    return _dec_g1(out.raw, oinf)
+
+
+def g1_msm_raw(pts: bytes, infs: bytes, scalars: bytes, n: int):
+    """MSM over pre-encoded buffers: pts = n*64 bytes of little-endian affine
+    (x, y), infs = n bytes, scalars = n*32 bytes little-endian (as the JAX
+    package's `g1_msm_raw`, native/__init__.py:195). Raises without the
+    library."""
+    L = lib()
+    if L is None:
+        raise RuntimeError("native BN254 engine unavailable (no g++?): cannot commit on the CPU")
+    out = ctypes.create_string_buffer(64)
+    oinf = ctypes.c_int()
+    L.g1_msm_c(pts, infs, scalars, n, out, ctypes.byref(oinf))
     return _dec_g1(out.raw, oinf)
 
 

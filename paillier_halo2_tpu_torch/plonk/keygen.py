@@ -19,7 +19,7 @@ from ..ff import host
 from ..gadgets.context import VirtualTable
 from ..poly import ops
 from ..utils.trace import PhaseTimer
-from .kzg import DEFAULT_WINDOW_BITS, commit_many
+from .kzg import commit_many
 from .layout import CircuitLayout, assign_layout
 from .params import BLINDING_ROWS
 from .srs import SRS
@@ -73,7 +73,6 @@ class ProvingKey:
     lu_coeffs: torch.Tensor
     table_values: np.ndarray  # (n,) object ints
     fixed_const_values: np.ndarray
-    window_bits: int = DEFAULT_WINDOW_BITS  # MSM window of every commitment
     # seconds of the last keygen per phase; "commit" is the verifying-key share
     phase_times: dict = dataclasses.field(default_factory=dict)
 
@@ -82,8 +81,7 @@ class ProvingKey:
         return self.vk.k
 
 
-def keygen(table: VirtualTable, k: int, lookup_bits: int, srs: SRS,
-           window_bits: int = DEFAULT_WINDOW_BITS) -> ProvingKey:
+def keygen(table: VirtualTable, k: int, lookup_bits: int, srs: SRS) -> ProvingKey:
     from .prover import column_slab
 
     timer = PhaseTimer("keygen")
@@ -151,8 +149,7 @@ def keygen(table: VirtualTable, k: int, lookup_bits: int, srs: SRS,
     ]
 
     t_commit = time.monotonic()
-    all_commits = commit_many(srs, q_coeffs + [fixed_const_coeffs, table_coeffs] + sigma_coeffs,
-                              window_bits)
+    all_commits = commit_many(srs, q_coeffs + [fixed_const_coeffs, table_coeffs] + sigma_coeffs)
     phase_times = {"commit": time.monotonic() - t_commit}
     timer.mark("fixed commitments (batched MSM)")
 
@@ -183,6 +180,5 @@ def keygen(table: VirtualTable, k: int, lookup_bits: int, srs: SRS,
         lu_coeffs=lu_coeffs,
         table_values=table_vals,
         fixed_const_values=fixed_const_vals,
-        window_bits=window_bits,
         phase_times=phase_times,
     )

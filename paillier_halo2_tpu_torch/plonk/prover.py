@@ -224,7 +224,6 @@ def create_proof(pk: ProvingKey, table: VirtualTable, blinding_seed: bytes | Non
 def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: bytes, _mark) -> bytes:
     vk = pk.vk
     dev = pk.srs.device
-    wb = pk.window_bits
     k, n, usable = vk.k, vk.n, vk.usable
     k_ext = k + EXTENDED_RATE_BITS
     rate = 1 << EXTENDED_RATE_BITS
@@ -248,7 +247,7 @@ def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: byte
     )
     adv_coeffs = [col_stack[:, c] for c in range(na)]
     lk_coeffs = [col_stack[:, na + i] for i in range(nl)]
-    for pt in commit_many(pk.srs, adv_coeffs + lk_coeffs, wb):
+    for pt in commit_many(pk.srs, adv_coeffs + lk_coeffs):
         tr.write_point(pt)
     _mark("advice committed")
 
@@ -267,7 +266,7 @@ def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: byte
         asp_stack = ops.coeffs_of(ops.to_device_mont(np.stack(ap_vals + sp_vals), dev), k)
         ap_coeffs = [asp_stack[:, i] for i in range(nl)]
         sp_coeffs = [asp_stack[:, nl + i] for i in range(nl)]
-    for pt in commit_many(pk.srs, ap_coeffs + sp_coeffs, wb):
+    for pt in commit_many(pk.srs, ap_coeffs + sp_coeffs):
         tr.write_point(pt)
     _mark("permuted lookups committed")
 
@@ -368,7 +367,7 @@ def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: byte
         zl_stack = ops.coeffs_of(zl_all, k)
         zl_coeffs = [zl_stack[:, i] for i in range(nl)]
         del num_l, den_l, frac_l, pref_l, zl_all, ap_dev, sp_dev, lk_dev
-    for pt in commit_many(pk.srs, zp_coeffs + zl_coeffs, wb):
+    for pt in commit_many(pk.srs, zp_coeffs + zl_coeffs):
         tr.write_point(pt)
     _mark("grand products committed")
     y = tr.squeeze_challenge()
@@ -448,7 +447,7 @@ def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: byte
     t_coeffs = ops.coeffs_from_extended(t_ext, k, k_ext)
     n_pieces = 3  # max constraint degree 4 -> deg(t) <= 3n - 4
     t_pieces = [t_coeffs[:, i * n : (i + 1) * n] for i in range(n_pieces)]
-    for pt in commit_many(pk.srs, t_pieces, wb):
+    for pt in commit_many(pk.srs, t_pieces):
         tr.write_point(pt)
     _mark("quotient committed")
 
@@ -581,7 +580,7 @@ def _shplonk_open(pk, tr, opening_sets, all_evals, points, pw, pw_inv, zinvs,
             hg = syn_div_rows(hg, pw[:, si], pw_inv[:, si], zinvs[si])
         term = _mul(hg, _mont([pow(v, G - 1 - gi, P)], dev))
         h_acc = term if h_acc is None else _add(h_acc, term)
-    (h_pt,) = commit_many(pk.srs, [h_acc], pk.window_bits)
+    (h_pt,) = commit_many(pk.srs, [h_acc])
     tr.write_point(h_pt)
     u = tr.squeeze_challenge()
 
@@ -619,5 +618,5 @@ def _shplonk_open(pk, tr, opening_sets, all_evals, points, pw, pw_inv, zinvs,
     u_inv = pow(u, P - 2, P)
     pwu = ops.powers_dev([u, u_inv], n, dev)
     q_poly = syn_div_rows(big_l, pwu[:, 0], pwu[:, 1], u_inv)
-    (q_pt,) = commit_many(pk.srs, [q_poly], pk.window_bits)
+    (q_pt,) = commit_many(pk.srs, [q_poly])
     tr.write_point(q_pt)

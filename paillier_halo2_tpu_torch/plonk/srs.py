@@ -98,7 +98,7 @@ def batched_fixed_base_mul(scalars: list[int], device) -> bn254.JPoint:
     return acc
 
 
-def generate_srs(k: int, seed: bytes = b"", device="cpu") -> SRS:
+def generate_srs(k: int, seed: bytes = b"", device="cuda") -> SRS:
     """Dev-mode SRS: tau from seed, [tau^i]G1 for i < 2^k, [1]G2, [tau]G2."""
     tau = _dev_tau(seed)
     powers, acc = [], 1
@@ -119,7 +119,8 @@ def cache_path(k: int, params_dir: str | None = None) -> str:
     return os.path.join(params_dir or DEFAULT_PARAMS_DIR, f"kzg_bn254_dev_{k}.npz")
 
 
-def read_or_create_srs(k: int, seed: bytes = b"", device="cpu", params_dir: str | None = None) -> SRS:
+def read_or_create_srs(k: int, seed: bytes = b"", device="cuda", params_dir: str | None = None
+                       ) -> SRS:
     """Disk-cached SRS (halo2-base's read_or_create_srs). The cache holds the
     seed-b"" SRS, as in the JAX package."""
     path = cache_path(k, params_dir)

@@ -3,7 +3,8 @@
 The kernels have a plain C interface and are compiled with nvcc for Hopper
 (`sm_90a`) into one shared library under the gitignored `build/kernels/`
 directory at the repository root, keyed by a hash of the sources, on first
-use; `ctypes` loads it. Every pointer and the stream cross as `c_void_p`.
+use: one nvcc per source, all started together, then one link. `ctypes`
+loads it. Every pointer and the stream cross as `c_void_p`.
 Each C entry point returns `cudaGetLastError()` after its launch, and
 `check()` raises if that is not 0.
 
@@ -21,7 +22,7 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("mont_mul.cu", "g1_add.cu")
+SOURCES = ("mont_mul.cu", "g1_add.cu", "mont_mul_lazy.cu", "g1_add_lazy.cu")
 HEADERS = ("field.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -49,6 +50,17 @@ def _source_tag() -> str:
     return h.hexdigest()
 
 
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands at once; wait for all of them."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    out = []
+    for c, p in zip(cmds, procs):
+        stdout, stderr = p.communicate()
+        out.append(subprocess.CompletedProcess(c, p.returncode, stdout, stderr))
+    return out
+
+
 def build() -> str:
     """Compile the kernel library if it is not built yet; returns its path."""
     global BUILD_SECONDS
@@ -56,18 +68,31 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES),
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
+    compiles = [
+        [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+         "-c", "-o", o, os.path.join(CSRC, s)]
+        for s, o in zip(SOURCES, objs)
     ]
     t0 = time.monotonic()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        results = _run_all(compiles)
+        for r in results:
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-8000:]}")
+        tmp = f"{so}.{tag}"
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-8000:]}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     BUILD_SECONDS = time.monotonic() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
     with open(os.path.join(BUILD_DIR, "ptxas.log"), "w") as fh:
-        fh.write(res.stderr)
+        fh.write("".join(r.stderr for r in results))
     os.replace(tmp, so)
     return so
 
@@ -81,7 +106,12 @@ def lib() -> ctypes.CDLL:
         L.pht_mont_mul.argtypes = [vp, vp, vp, ll, ci, vp]
         L.pht_g1_jadd.argtypes = [vp] * 9 + [ll, ci, vp]
         L.pht_g1_madd.argtypes = [vp] * 9 + [ll, ci, ci, vp]
-        for fn in (L.pht_mont_mul, L.pht_g1_jadd, L.pht_g1_madd):
+        L.pht_mont_mul_lazy.argtypes = [vp, vp, vp, ll, ci, vp]
+        L.pht_g1_madd_lazy.argtypes = [vp] * 9 + [ll, vp]
+        L.pht_g1_jadd_lazy.argtypes = [vp] * 9 + [ll, vp]
+        fns = (L.pht_mont_mul, L.pht_g1_jadd, L.pht_g1_madd, L.pht_mont_mul_lazy,
+               L.pht_g1_madd_lazy, L.pht_g1_jadd_lazy)
+        for fn in fns:
             fn.restype = ci
         _lib = L
     return _lib

@@ -1,7 +1,8 @@
 """The PyTorch port's main-path entry, `base_test().bench_builder`
 (`harness/base_test.py`, `harness/bench.py`), end to end at k=10 on the CPU:
 SRS created into an empty cache directory, keygen, witness synthesis, a
-random-blinded proof, verification and the `BenchStats` it reports.
+random-blinded proof, verification and the `BenchStats` it reports. On the
+CPU the commitments run the native engine.
 (The K=10 proof held byte for byte against the JAX package is in
 `test_torch_slice.py`.)
 """
@@ -20,8 +21,6 @@ torch.set_num_threads(
     max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 )
 
-WINDOW_BITS = 4  # the card uses 8; a commitment is a point either way
-
 
 def test_bench_builder_k10_verifies(tmp_path):
     """The harness's main-path entry at k=10, on the add circuit: SRS created
@@ -34,7 +33,7 @@ def test_bench_builder_k10_verifies(tmp_path):
     inp = PaillierAddCipherInput(limb, enc, n, g, c1, c2, paillier_add_native(n, c1, c2))
     stats = (
         base_test().k(10).lookup_bits(9).expect_satisfied(True).device("cpu")
-        .params_dir(str(tmp_path)).window_bits(WINDOW_BITS)
+        .params_dir(str(tmp_path))
         .bench_builder(inp, inp, paillier_enc_add_test)
     )
     assert stats.verified

@@ -17,8 +17,10 @@ import torch
 
 from paillier_halo2_tpu_torch.ec import bn254
 from paillier_halo2_tpu_torch.ec import host as ech
+from paillier_halo2_tpu_torch.ec import lazy_point as lp
 from paillier_halo2_tpu_torch.ec import point_kernels as pk
 from paillier_halo2_tpu_torch.ff import field as f
+from paillier_halo2_tpu_torch.ff import lazy_mont as lz
 from paillier_halo2_tpu_torch.ff import mulmod
 from paillier_halo2_tpu_torch.msm.pippenger import msm_packed
 from paillier_halo2_tpu_torch.plonk.srs import generate_srs
@@ -128,8 +130,70 @@ def test_msm_2e10_on_card_matches_fixture(dev):
     scalars = [(int(x) | int(y) << 63 | int(z) << 126 | int(w) << 189) % ech.R
                for x, y, z, w in zip(*hi)]
     counts = (mulmod.LAUNCHES["mont_mul"], pk.LAUNCHES["g1_jadd"], pk.LAUNCHES["g1_madd_packed"])
-    got = msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, f.pack_ints(scalars, dev))
+    got = msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, f.pack_ints(scalars, dev), signed=False)
     ex, ey = json.loads((ROOT / "params_fixtures" / "bench_msm_expected_10.json").read_text())
     assert got == (int(ex, 16), int(ey, 16))
     after = (mulmod.LAUNCHES["mont_mul"], pk.LAUNCHES["g1_jadd"], pk.LAUNCHES["g1_madd_packed"])
     assert all(b > a for a, b in zip(counts, after))
+
+
+@pytest.mark.parametrize("spec", [f.FR, f.FQ], ids=["Fr", "Fq"])
+@pytest.mark.parametrize("lanes", [1, 1000, 1 << 16])
+def test_mont_mul_lazy_kernel_matches_plain(dev, spec, lanes):
+    """K7 on values in [0, 2p), edges 0, 1, p - 1, p, 2p - 1 first."""
+    p = spec.p
+    xs = [v + p if i % 2 else v for i, v in enumerate(_values(p, 5, lanes))]
+    ys = _values(p, 6, lanes)[::-1]
+    edge = [0, 1, p - 1, p, 2 * p - 1]
+    xs[: len(edge)] = edge[: len(xs)]
+    a, b = f.pack_ints(xs, dev), f.pack_ints(ys, dev)
+    before = lz.LAUNCHES["mont_mul_lazy"]
+    out = lz.mont_mul_lazy(spec, a, b)
+    torch.cuda.synchronize()
+    assert lz.LAUNCHES["mont_mul_lazy"] == before + 1
+    assert torch.equal(out, lz.mont_mul_lazy_plain(spec, a, b))
+    assert torch.equal(lz.canonicalize(spec, out), mulmod.mont_mul(spec, a, b))
+
+
+def test_lazy_point_kernels_match_plain(dev, point_operands):
+    """K5 and K6 on the point kernels' operands, with a random half of the
+    lanes negated (K5) and the accumulators' coordinates put in [p, 2p) on
+    alternate lanes; canonicalised, K5 with neg unset equals K4 nodouble."""
+    operands, _ = point_operands
+    X1, Y1, Z1, X2, Y2, Z2 = operands["g1_jadd"]
+    packed, qinf = operands["g1_madd_packed"][3:]
+    n = X1.shape[1]
+    z = f.unpack_ints(Z1)
+
+    def bump(c):  # c + p on alternate finite lanes: the same values mod p
+        vals = f.unpack_ints(c)
+        return f.pack_ints([v + f.FQ.p if i % 2 and z[i] else v for i, v in enumerate(vals)], dev)
+
+    acc = tuple(bump(c) for c in (X1, Y1, Z1))
+    neg = torch.rand(n, device=dev) < 0.5
+    before = dict(lp.LAUNCHES)
+    out = lp.padd_mixed_packed_lazy(*acc, packed, qinf, neg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, r) for o, r in
+               zip(out, lp.padd_mixed_packed_lazy_plain(*acc, packed, qinf, neg)))
+    out = lp.padd_lazy(acc, (X2, Y2, Z2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, r) for o, r in zip(out, lp.padd_lazy_plain(*acc, X2, Y2, Z2)))
+    assert lp.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    no_neg = torch.zeros_like(neg)
+    lazy = lp.canonicalize_jp(*lp.padd_mixed_packed_lazy(X1, Y1, Z1, packed, qinf, no_neg))
+    k4 = pk.g1_madd_packed(X1, Y1, Z1, packed, qinf, nodouble=True)
+    assert all(torch.equal(a, b) for a, b in zip(lazy, k4))
+
+
+def test_signed_msm_2e10_on_card_matches_fixture(dev):
+    srs = generate_srs(10, b"", dev)
+    rng = np.random.default_rng(1)  # bench.py's MSM scalar stream
+    hi = rng.integers(0, 2**63, (4, 1 << 10), dtype=np.int64)
+    scalars = [(int(x) | int(y) << 63 | int(z) << 126 | int(w) << 189) % ech.R
+               for x, y, z, w in zip(*hi)]
+    before = dict(lp.LAUNCHES)
+    got = msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, f.pack_ints(scalars, dev))  # signed: card
+    ex, ey = json.loads((ROOT / "params_fixtures" / "bench_msm_expected_10.json").read_text())
+    assert got == (int(ex, 16), int(ey, 16))
+    assert all(lp.LAUNCHES[k] > before[k] for k in before)

@@ -1,15 +1,22 @@
 """The PyTorch port imports without JAX, Triton, nvcc or a card, builds
-nothing at import time, and its card entry point fails where there is no
-card instead of falling back to the CPU.
+nothing at import time, builds and reads only files of its own package, and
+its entry points default to the card and fail where there is none instead of
+falling back to the CPU.
 """
 import os
+import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+import torch
 
+from paillier_halo2_tpu_torch import native
+from paillier_halo2_tpu_torch.harness.base_test import base_test
+from paillier_halo2_tpu_torch.msm import pippenger
+from paillier_halo2_tpu_torch.plonk import srs
 from paillier_halo2_tpu_torch.utils import kernels
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -77,3 +84,37 @@ def test_source_tag_covers_every_kernel_source():
     names = {p.name for p in (ROOT / "paillier_halo2_tpu_torch" / "csrc").iterdir()}
     assert names == set(kernels.SOURCES) | set(kernels.HEADERS)
     assert len(kernels._source_tag()) == 16
+
+
+def test_built_and_read_files_lie_in_the_port():
+    """The kernel sources and the native engine's C++ are the port's own
+    files, and no module of the port names the JAX package's directory."""
+    pkg = ROOT / "paillier_halo2_tpu_torch"
+    sources = [Path(kernels.CSRC) / n for n in kernels.SOURCES + kernels.HEADERS]
+    for path in sources + [Path(native._SRC)]:
+        assert path.resolve().is_relative_to(pkg.resolve()), path
+        assert path.exists(), path
+    for py in pkg.rglob("*.py"):
+        assert not re.search(r"""["']paillier_halo2_tpu["']""", py.read_text()), py
+
+
+def _empty_circuit(ctx, range_chip, inp):
+    pass
+
+
+@pytest.mark.parametrize("entry", ["generate_srs", "read_or_create_srs", "msm", "bench_builder"])
+def test_entry_points_default_to_the_card(entry, tmp_path):
+    """Called without a device, each entry point asks for the card and
+    raises where there is none; it never runs on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default-device call would run")
+    calls = {
+        "generate_srs": lambda: srs.generate_srs(4),
+        "read_or_create_srs": lambda: srs.read_or_create_srs(4, params_dir=str(tmp_path)),
+        "msm": lambda: pippenger.msm([None, None], [1, 2]),
+        "bench_builder": lambda: base_test().k(4).lookup_bits(3).params_dir(str(tmp_path))
+        .bench_builder(None, None, _empty_circuit),
+    }
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        calls[entry]()
+    assert not list(tmp_path.iterdir())  # nothing was written on the way

@@ -1,10 +1,12 @@
-"""The PyTorch port's Pippenger MSM (`msm/pippenger.py`, unsigned windows)
-and KZG commitments (`plonk/kzg.py`) against the committed 2^10 fixture
+"""The PyTorch port's Pippenger MSM (`msm/pippenger.py`) on both routes —
+unsigned windows (K4, K2) and signed windows (K5, K6, then K2) — and its KZG
+commitments (`plonk/kzg.py`) against the committed 2^10 fixture
 `params_fixtures/bench_msm_expected_10.json`, the host oracle `ec/host`, and
 the JAX package's window-key and schedule helpers.
 
-The MSM runs the plain versions of K2 and K4 here on the CPU. A commitment is
-a point, so every window width must give the same result.
+The MSM runs the plain versions of its kernels here on the CPU; a CPU
+commitment runs the native engine. A commitment is a point, so every route
+and window width must give the same result.
 """
 import json
 import os
@@ -18,6 +20,7 @@ import torch
 
 from paillier_halo2_tpu.ff import field_jax as fj
 from paillier_halo2_tpu.msm import pippenger as jpip
+from paillier_halo2_tpu_torch import native
 from paillier_halo2_tpu_torch.ec import bn254
 from paillier_halo2_tpu_torch.ec import host as ech
 from paillier_halo2_tpu_torch.ff import field as f
@@ -115,7 +118,105 @@ def test_kzg_commit_many(srs10):
     mont = [f.to_mont(f.FR, f.pack_ints(p, "cpu")) for p in polys]
     bases = srs10.g1_points(m)
     want = [ech.g1_msm(bases, p) for p in polys]
-    assert kzg.commit_many(srs10, mont, window_bits=4) == want
-    assert kzg.commit(srs10, mont[1], window_bits=2) == want[1]
+    assert kzg.commit_many(srs10, mont) == want
+    assert kzg.commit(srs10, mont[1]) == want[1]
     assert kzg.commit_many(srs10, []) == []
     assert bn254.unpack_jacobian(bn254.pack_jacobian(bases[:3], "cpu")) == bases[:3]
+
+
+# -- the signed route ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("c", [8, 9, 11])
+def test_signed_keys_match_jax(c):
+    scalars = _bench_scalars(61) + [0, 1, ech.R - 1]
+    keys_t, negs_t = pip._signed_keys(f.pack_ints(scalars, "cpu"), c)
+    keys_j, negs_j = jpip._signed_keys(jnp.asarray(fj.pack_ints(scalars)), c)
+    assert np.array_equal(keys_t.numpy(), np.asarray(keys_j).astype(np.int64))
+    assert np.array_equal(negs_t.numpy(), np.asarray(negs_j))
+    for i, s in enumerate(scalars):  # the recoding is exact
+        k, ng = keys_t[:, i].tolist(), negs_t[:, i].tolist()
+        assert sum((-x if n else x) << (c * w) for w, (x, n) in enumerate(zip(k, ng))) == s
+
+
+@pytest.mark.parametrize("c,s_base", [(8, 4), (8, 8), (9, 8), (11, 8), (11, 1)])
+def test_signed_schedule_matches_jax(c, s_base):
+    n_windows = -(-256 // c)
+    assert pip._sub_schedule_signed(n_windows, c, s_base) == jpip._sub_schedule_signed(
+        n_windows, c, s_base
+    )
+
+
+def test_signed_window_bits_match_jax(monkeypatch):
+    monkeypatch.setenv("PAILLIER_TPU_LAZY", "1")  # the JAX package's accelerator route
+    monkeypatch.delenv("PAILLIER_TPU_MSM_SIGNED", raising=False)
+    for n in (1 << 10, (1 << 16) - 1, 1 << 16, (1 << 19) - 1, 1 << 19, 1 << 20):
+        assert pip._signed_window_bits(n) == jpip._signed_window_bits(n)
+
+
+def test_signed_msm_2e10_matches_fixture(srs10):
+    ex, ey = json.loads((FIXTURES / "bench_msm_expected_10.json").read_text())
+    sd = f.pack_ints(_bench_scalars(1 << 10), "cpu")
+    stats = {}
+    got = pip.msm_packed(srs10.g1_px, srs10.g1_py, srs10.g1_inf, sd, signed=True, stats=stats)
+    assert got == (int(ex, 16), int(ey, 16))
+    assert stats["lanes"] == pip._lanes_per_poly(*pip._sub_schedule_signed(32, 8, 4))
+    assert stats["rounds"] > 0
+
+
+@pytest.mark.parametrize("c", [3, 5])
+def test_signed_msm_matches_host_oracle(c):
+    prng = random.Random(c)
+    points = [ech.g1_mul(ech.G1, prng.randrange(1, ech.R)) for _ in range(40)]
+    points[3] = None  # an infinity base
+    scalars = [prng.randrange(ech.R) for _ in points]
+    scalars[:4] = [0, 1, ech.R - 1, 5]
+    scalars[10:14] = [7] * 4  # one bucket, several points
+    scalars[20:22] = [ech.R - 7] * 2  # the same bucket, negated
+    got = pip.msm(points, scalars, "cpu", c, signed=True)
+    assert got == ech.g1_msm(points, scalars)
+    assert pip.msm(points[:3], [0, 0, 0], "cpu", c, signed=True) is None
+
+
+@pytest.mark.parametrize("big", [(1 << 256) - 1, 1 << 255])
+def test_signed_route_rejects_scalars_above_r(srs10, big):
+    m = 4
+    sd = f.pack_ints([3, big, 5, 7], "cpu")
+    bases = (srs10.g1_px[:, :m].contiguous(), srs10.g1_py[:, :m].contiguous(),
+             srs10.g1_inf[:m].contiguous())
+    with pytest.raises(ValueError, match="below r"):
+        pip.msm_packed(*bases, sd, signed=True)
+    assert pip.msm_packed(*bases, sd, signed=False) == ech.g1_msm(srs10.g1_points(m), [3, big, 5, 7])
+
+
+def test_signed_batched_commitments_match_single_msms(srs10, monkeypatch):
+    """Several polynomials share one bucket loop, or several when the lane
+    bound splits them into groups; the result is the same."""
+    m = 64
+    prng = random.Random(9)
+    polys = [[prng.randrange(ech.R) for _ in range(m)] for _ in range(3)]
+    bases = srs10.g1_points(m)
+    scalars = f.pack_ints([s for poly in polys for s in poly], "cpu").reshape(8, 3, m)
+    args = (srs10.g1_px[:, :m].contiguous(), srs10.g1_py[:, :m].contiguous(),
+            srs10.g1_inf[:m].contiguous(), scalars.permute(1, 0, 2).contiguous(), 4)
+    want = [ech.g1_msm(bases, poly) for poly in polys]
+    one_call = {}
+    assert pip.msm_packed_multi(*args, signed=True, stats=one_call) == want
+    monkeypatch.setattr(pip, "MAX_LANES", 1)  # one poly per call
+    grouped = {}
+    assert pip.msm_packed_multi(*args, signed=True, stats=grouped) == want
+    assert grouped["lanes"] == one_call["lanes"] and grouped["rounds"] > one_call["rounds"] // 3
+
+
+def test_cpu_commit_many_runs_native_and_equals_the_plain_msm(srs10, monkeypatch):
+    m = 48
+    prng = random.Random(6)
+    polys = [[prng.randrange(ech.R) for _ in range(m)] for _ in range(2)]
+    mont = [f.to_mont(f.FR, f.pack_ints(p, "cpu")) for p in polys]
+    scalars = torch.stack([f.pack_ints(p, "cpu") for p in polys])
+    plain = pip.msm_packed_multi(srs10.g1_px[:, :m].contiguous(), srs10.g1_py[:, :m].contiguous(),
+                                 srs10.g1_inf[:m].contiguous(), scalars, 4)
+    assert kzg.commit_many(srs10, mont) == plain
+    monkeypatch.setattr(native, "lib", lambda: None)  # no native engine: raise, no fallback
+    with pytest.raises(RuntimeError, match="native"):
+        kzg.commit_many(srs10, mont)

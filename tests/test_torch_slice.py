@@ -4,10 +4,11 @@ proof the JAX package produced: `tests/torch_fixtures/slice_enc_k10.json`
 lookup_bits=9, ENC=16/LIMB=8 encryption circuit with SRS seed b"plonk-test"
 and blinding seed b"test-blind", SHPLONK.
 
-The port runs on the CPU here, through the plain versions of its kernels.
-The proof must be byte-identical and the verifying-key commitments equal. The
-MSM window is 4 here (8 on the card): a commitment is a point, so the window
-changes no byte.
+The port runs on the CPU here: the plain versions of its kernels, and the
+native engine for the commitments, as the JAX package commits on the CPU.
+The proof must be byte-identical and the verifying-key commitments equal. A
+commitment is a point, so the engine changes no byte (`chip_smoke.py` proves
+the same bytes on the card, commitments on the signed MSM route).
 """
 import json
 import os
@@ -31,7 +32,6 @@ torch.set_num_threads(
 )
 
 FIXTURE = Path(__file__).resolve().parent / "torch_fixtures" / "slice_enc_k10.json"
-WINDOW_BITS = 4
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +47,7 @@ def slice_run(fx):
     table = ctx.finalize()
     assert table.n_rows == fx["n_rows"]
     srs = generate_srs(fx["k"], fx["srs_seed"].encode(), "cpu")
-    pk = keygen(table, fx["k"], fx["lookup_bits"], srs, WINDOW_BITS)
+    pk = keygen(table, fx["k"], fx["lookup_bits"], srs)
     proof = create_proof(pk, table, fx["blinding_seed"].encode())
     return pk, srs, proof
 
