@@ -8,14 +8,21 @@ Phases:
 
 1. print the card's name and power limit, then build the CUDA kernels from
    `paillier_halo2_tpu_torch/csrc/` (one nvcc per source, all at once, sm_90a)
-   and print the build time;
+   and print the build time, each kernel's registers and spills (ptxas), and
+   for each schedule of the Fq product (`probes/fq_product.cu`) the SASS
+   instructions of one product (`cuobjdump --dump-sass`) and its rate in a
+   loop of chained products;
 2. hold every kernel against its plain PyTorch version on the card, exactly,
    at the main path's shapes (2^16 lanes for the Montgomery products, 2^14
    for the point adds) with edge lanes, and time both; the redundant-form
    kernels K5-K7, canonicalised, also equal K4, K2 and K1 on the same inputs;
 3. a 2^14-point MSM on the seed-b"" SRS equals
    `params_fixtures/bench_msm_expected_14.json` on both routes: signed
-   windows (K5, K6) and unsigned windows (K4, whose launches are counted here);
+   windows (the bucket-loop kernel, K6, the window-sum kernel, one launch of
+   each loop kernel and no K5 or K2 step) and unsigned windows (K4 and K2's
+   merge, whose launches are counted here); the two loop kernels are held
+   against their plain versions on that MSM's lane table and buckets, and
+   timed;
 4. the K=10 encryption proof, its commitments on the signed route, is
    byte-identical to the JAX package's fixture
    `tests/torch_fixtures/slice_enc_k10.json`, and the verifier accepts it and
@@ -23,13 +30,18 @@ Phases:
 5. the main path: `base_test().bench_builder` on the ENC=128/LIMB=64
    encryption circuit at k=14, lookup_bits=13 — SRS generated on the card
    into a fresh directory, keygen, witness, proof, verify — with every
-   kernel's launch count taken over this run alone;
+   kernel's launch count taken over this run alone; the two loop kernels are
+   held against their plain versions on the first MSM call's inputs (its
+   lane table and buckets) and timed there, and the kernels line takes their
+   entries from this comparison;
 6. the MSM 2^20 entry (bench.py's headline phase): the seed-b"" SRS generated
    at k = 20 on the card, bench.py's scalars, the signed route (c = 11) and
    the unsigned route (window 8), each equal to
    `params_fixtures/bench_msm_expected_20.json`, with first and warm times;
-   one K5 and one K6 launch of the signed route, at their real lane counts,
-   are held against their plain versions on the same inputs;
+   the signed route's window sums are held against their plain version and
+   its bucket loop against the rounds composed of K5 step launches on the
+   same lane table, one of those K5 launches and one K6 launch of the route
+   against their plain versions, and the loop kernels are timed;
 7. the lazy-mulmod entry (bench.py's `mulmod_lazy` phase): ten chained K7
    products over Fr at 2^20 lanes, equal after canonicalisation to the same
    chain through K1; K7's launches are counted here.
@@ -68,7 +80,18 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                   "paillier_halo2_tpu/ec/lazy_point.py:220"),
     "mont_mul_lazy": ("paillier_halo2_tpu_torch/csrc/mont_mul_lazy.cu",
                       "paillier_halo2_tpu/ff/lazy_mont.py:301"),
+    "window_sums": ("paillier_halo2_tpu_torch/csrc/g1_add.cu",
+                    "paillier_halo2_tpu/ec/pallas_point.py:230"),
+    "bucket_loop_lazy": ("paillier_halo2_tpu_torch/csrc/g1_add_lazy.cu",
+                         "paillier_halo2_tpu/ec/lazy_point.py:172"),
 }
+# Where each kernel's launches are counted: the main path (phase 5) unless
+# named here. K5's one-step kernel is the JAX package's counterpart and the
+# loop kernel's reference; since the loop kernel it runs on no path.
+LAUNCH_PATH = {"g1_jadd": "phase 3, unsigned 2^14 MSM (sub-accumulator merge)",
+               "g1_madd_packed": "phase 3, unsigned 2^14 MSM",
+               "mont_mul_lazy": "phase 7, lazy-mulmod chain",
+               "padd_mixed_packed_lazy": "none: off every path since the bucket-loop kernel"}
 # The least time the card could take for a timed call: the larger of its
 # bytes over the memory rate and its 32-bit integer multiply-adds over the
 # integer rate. Bytes: each input read once, each output written once.
@@ -81,6 +104,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 IMAD_PER_PRODUCT = 264
 IMAD_PER_SM_CLOCK = 64
+# The loop kernels' work depends on the call: `loop_work` counts it from the
+# inputs (products per add as in WORK, doubling products not counted: an MSM
+# bucket pair is P == Q, finite, with probability about 2^-254).
 # name -> (Montgomery products per lane, extra products per doubling lane,
 #          bytes per lane)
 WORK = {
@@ -141,6 +167,7 @@ PROFILED = {  # kernel -> substring of its CUDA symbol in the profiler's rows
     "K3 g1_madd": "g1_madd_kernel<false, false>", "K3 g1_madd nodouble": "g1_madd_kernel<true, false>",
     "K4 g1_madd_packed": "g1_madd_kernel<true, true>", "K5 padd_mixed_packed_lazy": "g1_madd_lazy_kernel",
     "K6 padd_lazy": "g1_jadd_lazy_kernel", "K7 mont_mul_lazy": "mont_mul_lazy_kernel",
+    "K2 window sums": "g1_window_sums_kernel", "K5 bucket loop": "g1_bucket_lazy_kernel",
 }
 
 
@@ -185,6 +212,64 @@ def max_abs_err(outs, refs) -> int:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+# -- phase 1: what the compiler made ------------------------------------------------
+
+
+def ptxas_report(log_path: str) -> None:
+    """Each kernel's registers and spill bytes from the build's ptxas -v log."""
+    import re
+
+    with open(log_path) as fh:
+        text = fh.read()
+    rows = []
+    for b in re.split(r"Compiling entry function ", text)[1:]:
+        name = b.split("'")[1]
+        short = re.search(r"\d+((?:g1|mont)_\w*?_kernel)(I\w+?EE)?", name)
+        regs = re.search(r"Used (\d+) registers", b)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", b)
+        rows.append(f"{''.join(g or '' for g in short.groups()) if short else name}: "
+                    f"{regs.group(1) if regs else '?'} registers, spill stores/loads "
+                    f"{spill.group(1) + '/' + spill.group(2) if spill else '?'} B")
+    log("  ptxas (sm_90a): " + "; ".join(rows))
+
+
+def product_probe() -> None:
+    """Build probes/fq_product.cu, count the SASS instructions of one Fq
+    product in each schedule (all, IMAD*, IADD3*; the kernel's loads and
+    stores of its 24 words included) and run its timed loops; the probe
+    exits non-zero if the schedules' bits differ."""
+    import re
+
+    from paillier_halo2_tpu_torch.utils import kernels
+
+    nvcc = kernels._nvcc()
+    exe = os.path.join(kernels.BUILD_DIR, "fq_product_probe")
+    subprocess.run([nvcc, *kernels.ARCH_FLAGS, "-std=c++17", "-O3", "-I", kernels.CSRC, "-o", exe,
+                    os.path.join(ROOT, "paillier_halo2_tpu_torch", "probes", "fq_product.cu")],
+                   check=True)
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "--dump-sass", exe], capture_output=True, text=True,
+                              check=True).stdout
+        counts = {}
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            name = part.split()[0]
+            if not name.startswith("probe_"):
+                continue
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9]*)", part)
+            ops = [o for o in ops if o != "NOP"]
+            counts[name[len("probe_"):]] = (len(ops), sum(o.startswith("IMAD") for o in ops),
+                                            sum(o.startswith("IADD3") for o in ops))
+        log("  SASS per Fq product (instructions, IMAD*, IADD3*): " + "; ".join(
+            f"{k} {v}" for k, v in sorted(counts.items())))
+    else:
+        log("  SASS per Fq product: not measured (no cuobjdump beside nvcc)")
+    run = subprocess.run([exe], capture_output=True, text=True)
+    for line in run.stdout.splitlines():
+        log("  " + line)
+    require(run.returncode == 0, f"the Fq product probe failed: {run.stderr[-2000:]}")
 
 
 # -- phase 2: kernels against their plain versions ---------------------------------
@@ -481,6 +566,106 @@ def check_lazy_points(dev, results: dict) -> None:
     results["padd_lazy"] = entry
 
 
+# -- the loop kernels on an MSM's own inputs ----------------------------------------
+
+
+def window_adds(n_buckets: int) -> int:
+    """Point adds of one row of the window sums: every lane at each step of
+    the scan, then only the lanes that reach lane 0 at each step of the
+    reduction (`g1_window_sums_kernel`)."""
+    log_b = (n_buckets - 1).bit_length()
+    adds = n_buckets * log_b
+    for i in range(log_b):
+        stride = 2 << i
+        lanes = {m * stride % n_buckets for m in range(1 << (log_b - i - 1))}
+        adds += len(lanes)
+    return adds
+
+
+def loop_work(name: str, args) -> tuple[int, int]:
+    """(multiply-adds, bytes) of one call of a loop kernel on `args`: each
+    input read once, each output written once."""
+    from paillier_halo2_tpu_torch.ec import lazy_point as lp
+
+    if name == "window_sums":
+        rows, n_buckets = args[0].shape[1:]
+        return (IMAD_PER_PRODUCT * WORK["g1_jadd"][0] * rows * window_adds(n_buckets),
+                96 * rows * (n_buckets + 1))
+    packed, order, _, seg, count, sub, nsub = args[:7]
+    lane_rounds = int(lp._need(count.long(), sub.long(), nsub.long()).sum())
+    n_lanes = seg.shape[0]
+    nbytes = packed.numel() * 4 + order.numel() * 5 + n_lanes * (6 * 4 + 3 * 32)
+    return IMAD_PER_PRODUCT * WORK["padd_mixed_packed_lazy"][0] * lane_rounds, nbytes
+
+
+def describe(name: str, args) -> str:
+    if name == "window_sums":
+        return f"{args[0].shape[1]} rows x {args[0].shape[2]} buckets"
+    from paillier_halo2_tpu_torch.ec import lazy_point as lp
+
+    need = lp._need(args[4].long(), args[5].long(), args[6].long())
+    return f"{args[3].shape[0]} lanes, {int(need.sum())} lane-rounds, at most {int(need.max())}"
+
+
+def check_loop_kernels(captured: dict, where: str, imad_per_s: float,
+                       reference: str = "plain") -> dict:
+    """The window-sum and bucket-loop kernels on captured MSM inputs, held
+    against a reference and timed: with "plain" each against its plain
+    version; with "k5" the window sums against theirs and the bucket loop
+    against the rounds composed of K5 step launches, one of those launches
+    against K5's plain version. Returns results entries."""
+    import torch
+
+    from paillier_halo2_tpu_torch.ec import lazy_point as lp
+    from paillier_halo2_tpu_torch.ec import point_kernels as pk
+
+    kern = {"window_sums": pk.window_sums, "bucket_loop_lazy": lp.bucket_loop_lazy}
+    plain = {"window_sums": pk.window_sums_plain, "bucket_loop_lazy": lp.bucket_loop_lazy_plain}
+    symbol = {"window_sums": "g1_window_sums_kernel", "bucket_loop_lazy": "g1_bucket_lazy_kernel"}
+    entries = {}
+    for name, args in captured.items():
+        entry = {}
+        k5 = CaptureCall(lp, "padd_mixed_packed_lazy", 1)
+        stepwise = name == "bucket_loop_lazy" and reference == "k5"
+        t0 = time.monotonic()
+        if stepwise:
+            with k5:
+                ref = lp.bucket_rounds(lp.padd_mixed_packed_lazy, *args)
+        else:
+            ref = plain[name](*args)
+        torch.cuda.synchronize()
+        ref_s = time.monotonic() - t0
+        out = kern[name](*args)
+        torch.cuda.synchronize()
+        entry["max_abs_err"] = max_abs_err(out, ref)
+        ref_name = "the rounds of K5 step launches" if stepwise else "its plain version"
+        require(all(torch.equal(o, r) for o, r in zip(out, ref)),
+                f"{name} differs from {ref_name} ({where})")
+        said = f"equal to {ref_name} (max_abs_err {entry['max_abs_err']}, {ref_s:.3f} s)"
+        if stepwise:
+            require(k5.args is not None, "the K5 rounds ran no second step")
+            check_captured("padd_mixed_packed_lazy", lp.padd_mixed_packed_lazy,
+                           lp.padd_mixed_packed_lazy_plain, k5.args, k5.args)
+        else:
+            entry["plain_ms"] = ref_s * 1e3
+        entry["device_ms"] = device_ms(lambda: kern[name](*args), 5, symbol[name])
+        entry["ms"] = cuda_ms(lambda: kern[name](*args), 5)
+        entry["ops"], entry["bytes"] = loop_work(name, args)
+        bound_ms, bound_by = bound(name, entry, imad_per_s)
+        log(f"  {name} on {where} ({describe(name, args)}): {said}; kernel {entry['ms']} ms "
+            f"per call ({entry['device_ms']} ms on the device); bound {bound_ms} ms ({bound_by})")
+        entries[name] = entry
+    return entries
+
+
+def loop_captures():
+    """Capture the first call of each loop kernel's wrapper."""
+    from paillier_halo2_tpu_torch.ec import lazy_point as lp
+    from paillier_halo2_tpu_torch.ec import point_kernels as pk
+
+    return CaptureCall(pk, "window_sums", 0), CaptureCall(lp, "bucket_loop_lazy", 0)
+
+
 # -- phases 3-5 ---------------------------------------------------------------------
 
 
@@ -525,9 +710,10 @@ def msm_fixture(k: int):
     return int(ex, 16), int(ey, 16)
 
 
-def check_msm(dev) -> dict:
-    """The 2^14 MSM on both routes; returns the launches of the unsigned
-    route's run, the one that runs K4."""
+def check_msm(dev, results: dict, imad_per_s: float) -> dict:
+    """The 2^14 MSM on both routes, and the loop kernels on the signed
+    route's inputs; returns the launches of the unsigned route's run, the one
+    that runs K4 and K2's merge."""
     import torch
 
     from paillier_halo2_tpu_torch.msm.pippenger import msm_packed
@@ -538,9 +724,13 @@ def check_msm(dev) -> dict:
     sd = bench_scalars(k, dev)
     want = msm_fixture(k)
     counts = {}
+    ws, bl = loop_captures()
     for signed in (True, False):
-        msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, sd, signed=signed)
+        with ws, bl:
+            msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, sd, signed=signed)
         torch.cuda.synchronize()
+        if signed:
+            captured = {"window_sums": ws.args, "bucket_loop_lazy": bl.args}
         zero_counts()
         t0 = time.monotonic()
         got = msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, sd, signed=signed)
@@ -549,9 +739,16 @@ def check_msm(dev) -> dict:
         route = "signed" if signed else "unsigned"
         require(got == want, f"2^14 MSM ({route}) differs from its fixture")
         log(f"  MSM 2^14 {route} equals params_fixtures/bench_msm_expected_14.json; warm {dt:.4f} s")
-    require(counts[True]["padd_mixed_packed_lazy"] > 0 and counts[True]["padd_lazy"] > 0,
-            "the signed route did not launch K5 and K6")
-    require(counts[False]["g1_madd_packed"] > 0, "the unsigned route did not launch K4")
+    log(f"  launches, signed: {counts[True]}; unsigned: {counts[False]}")
+    require(counts[True]["bucket_loop_lazy"] == 1 and counts[True]["window_sums"] == 1,
+            "the signed route did not launch each loop kernel once")
+    require(counts[True]["padd_lazy"] > 0, "the signed route did not launch K6")
+    require(counts[True]["padd_mixed_packed_lazy"] == 0 and counts[True]["g1_jadd"] == 0,
+            "the signed route launched a K5 or K2 step")
+    require(counts[False]["g1_madd_packed"] > 0 and counts[False]["g1_jadd"] > 0
+            and counts[False]["window_sums"] == 1,
+            "the unsigned route did not launch K4, K2's merge and the window sums")
+    results.update(check_loop_kernels(captured, "the 2^14 MSM's signed call", imad_per_s))
     return counts[False]
 
 
@@ -627,7 +824,9 @@ def check_srs_cache(dev, params_dir: str) -> None:
 def _clone(x):
     import torch
 
-    return x.clone() if isinstance(x, torch.Tensor) else tuple(_clone(y) for y in x)
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    return tuple(_clone(y) for y in x) if isinstance(x, (tuple, list)) else x
 
 
 class CaptureCall:
@@ -665,8 +864,10 @@ def check_captured(name: str, kern, plain, args, flat_args) -> None:
         f"(max_abs_err {max_abs_err(out, ref)})")
 
 
-def run_msm_entry(dev, k: int = 20) -> None:
-    """bench.py's headline entry: MSM at 2^k points on both routes."""
+def run_msm_entry(dev, imad_per_s: float, k: int = 20) -> None:
+    """bench.py's headline entry: MSM at 2^k points on both routes; the
+    signed route's loop kernels and its K6 merge held against references on
+    their real inputs."""
     import torch
 
     from paillier_halo2_tpu_torch.ec import lazy_point as lp
@@ -685,8 +886,8 @@ def run_msm_entry(dev, k: int = 20) -> None:
         args = (srs.g1_px, srs.g1_py, srs.g1_inf, sd, window_bits, signed)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        # the second K5 launch adds to accumulators that are mostly finite
-        with CaptureCall(lp, "padd_mixed_packed_lazy", 1) as k5, CaptureCall(lp, "padd_lazy", 0) as k6:
+        ws, bl = loop_captures()
+        with ws, bl, CaptureCall(lp, "padd_lazy", 0) as k6:
             first = msm_packed(*args)
         torch.cuda.synchronize()
         t_first = time.monotonic() - t0
@@ -700,16 +901,20 @@ def run_msm_entry(dev, k: int = 20) -> None:
         require(first == want and warm == want,
                 f"2^{k} MSM ({route}) differs from params_fixtures/bench_msm_expected_{k}.json")
         shown = {name: counts[name] for name in
-                 ("padd_mixed_packed_lazy", "padd_lazy", "g1_madd_packed", "g1_jadd")}
+                 ("bucket_loop_lazy", "padd_mixed_packed_lazy", "padd_lazy", "g1_madd_packed",
+                  "g1_jadd", "window_sums")}
         log(f"  MSM 2^{k} {route} (window {window_bits or 'signed default'}): equals the fixture; first "
             f"{t_first:.4f} s, warm {t_warm:.4f} s = {n / t_warm:.1f} points/s; "
             f"{stats['lanes']} bucket lanes, {stats['rounds']} rounds, {stats['lane_rounds']} "
             f"lane-rounds; warm-call launches {shown}")
         log(f"    profile of a third call: {profile_call(lambda: msm_packed(*args), t_warm)}")
+        require(counts["window_sums"] == 1, f"the {route} route did not sum its windows in one launch")
         if signed:
-            require(k5.args is not None and k6.args is not None, "the signed route ran no K5 or K6")
-            check_captured("padd_mixed_packed_lazy", lp.padd_mixed_packed_lazy,
-                           lp.padd_mixed_packed_lazy_plain, k5.args, k5.args)
+            require(counts["bucket_loop_lazy"] == 1 and counts["padd_mixed_packed_lazy"] == 0
+                    and counts["g1_jadd"] == 0, "the signed route ran a K5 or K2 step")
+            require(k6.args is not None, "the signed route ran no K6")
+            check_loop_kernels({"window_sums": ws.args, "bucket_loop_lazy": bl.args},
+                               f"the 2^{k} MSM's signed call", imad_per_s, "k5")
             check_captured("padd_lazy", lp.padd_lazy, lp.padd_lazy_plain, k6.args, (*k6.args[0], *k6.args[1]))
 
 
@@ -754,10 +959,15 @@ def run_mulmod_lazy(dev, log_n: int = 20) -> dict:
 
 
 def bound(name: str, entry: dict, imad_per_s: float):
-    """(bound_ms, bound_by) of one timed call of `name` (see WORK)."""
-    products, dbl_products, nbytes = WORK[name]
-    ops = IMAD_PER_PRODUCT * (products * entry["lanes"] + dbl_products * entry["double_lanes"])
-    t_ops, t_bytes = ops / imad_per_s, nbytes * entry["lanes"] / HBM_BYTES_PER_S
+    """(bound_ms, bound_by) of one timed call of `name` (see WORK), or of
+    the work an entry counted itself (`ops`, `bytes`)."""
+    if "ops" in entry:
+        ops, nbytes = entry["ops"], entry["bytes"]
+    else:
+        products, dbl_products, per_lane = WORK[name]
+        ops = IMAD_PER_PRODUCT * (products * entry["lanes"] + dbl_products * entry["double_lanes"])
+        nbytes = per_lane * entry["lanes"]
+    t_ops, t_bytes = ops / imad_per_s, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -795,6 +1005,8 @@ def main() -> int:
     log(f"[1] kernels built in {time.monotonic() - t0:.2f} s "
         f"(nvcc {kernels.BUILD_SECONDS if kernels.BUILD_SECONDS is not None else 'cached'}) "
         f"-> {os.path.relpath(so, ROOT)}")
+    ptxas_report(os.path.join(kernels.BUILD_DIR, "ptxas.log"))
+    product_probe()
 
     results: dict = {}
     launches: dict = {}
@@ -806,7 +1018,9 @@ def main() -> int:
         check_lazy_points(dev, results)
     if 3 in phases:
         log("[3] MSM 2^14, signed and unsigned routes")
-        launches["g1_madd_packed"] = check_msm(dev)["g1_madd_packed"]
+        unsigned = check_msm(dev, results, imad_per_s)
+        for name in ("g1_madd_packed", "g1_jadd"):
+            launches[name] = unsigned[name]
     if 4 in phases:
         log("[4] K=10 slice against the JAX fixture")
         check_slice_fixture(dev)
@@ -818,27 +1032,37 @@ def main() -> int:
         torch.cuda.synchronize()
         zero_counts()
         torch.cuda.reset_peak_memory_stats(dev)
-        stats = run_main_path(dev, params_dir)
+        ws, bl = loop_captures()
+        with ws, bl:
+            stats = run_main_path(dev, params_dir)
         main_counts = read_counts()
         for line in stats.pretty().splitlines():
             log("  " + line)
         log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         log(f"  launches during the main path: {main_counts}")
         require(stats.verified, "main-path proof did not verify")
-        for name in ("mont_mul", "g1_jadd", "g1_madd", "padd_mixed_packed_lazy", "padd_lazy"):
+        require(main_counts["bucket_loop_lazy"] == main_counts["window_sums"] > 0,
+                "the main path's MSM calls did not launch each loop kernel once")
+        require(main_counts["padd_mixed_packed_lazy"] == 0 and main_counts["g1_jadd"] == 0,
+                "the main path launched a K5 or K2 step")
+        for name in ("mont_mul", "g1_madd", "padd_lazy", "window_sums", "bucket_loop_lazy",
+                     "padd_mixed_packed_lazy"):
             launches[name] = main_counts[name]
+        results.update(check_loop_kernels({"window_sums": ws.args, "bucket_loop_lazy": bl.args},
+                                          "the main path's first MSM call", imad_per_s))
         check_srs_cache(dev, params_dir)
     if 6 in phases:
         log("[6] MSM 2^20 entry, signed and unsigned routes")
-        run_msm_entry(dev)
+        run_msm_entry(dev, imad_per_s)
     if 7 in phases:
         log("[7] lazy-mulmod entry, Fr, 2^20 lanes")
         launches["mont_mul_lazy"] = run_mulmod_lazy(dev)["mont_mul_lazy"]
     if {3, 5, 7} <= phases:
         for name in KERNELS:
-            require(launches[name] > 0, f"kernel {name} was not launched on its path")
+            if name != "padd_mixed_packed_lazy":
+                require(launches[name] > 0, f"kernel {name} was not launched on its path")
 
-    if results:
+    if {2, 3} <= phases:
         kernels_line = []
         for name, (source, replaces) in KERNELS.items():
             r = results[name]
@@ -848,6 +1072,7 @@ def main() -> int:
                 "launches": launches.get(name), "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None, "device_ms": r["device_ms"],
+                "launches_counted_on": LAUNCH_PATH.get(name, "phase 5, the main path"),
             })
         print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

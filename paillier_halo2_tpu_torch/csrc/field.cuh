@@ -282,4 +282,228 @@ __device__ __forceinline__ void sub_lazy(uint32_t r[kLimbs], const uint32_t a[kL
   }
 }
 
+// ---------------------------------------------------------------------------
+// The same operations on PTX carry chains (the `_cc` forms).
+//
+// `redc_product` above is CIOS in C++ 64-bit arithmetic: each limb step
+// widens to 64 bits and splits the carry back out, which costs separate
+// IADD3 instructions beside the IMADs. Here a row a*b[i] is added to t as two
+// carry chains in even/odd form: one over the products a[0], a[2], a[4],
+// a[6], one over a[1], a[3], a[5], a[7], each product's low word
+// (`mad.lo.cc`/`madc.lo.cc`) followed at once by its high word
+// (`madc.hi.cc`) in the next word up. The even products' words do not
+// overlap, nor the odd ones', so each chain is one pass, and ptxas fuses each
+// low/high pair of one product into a wide multiply-add with carry, where a
+// chain over all low words and then all high words costs a multiply and an
+// add per word. `probes/fq_product.cu` (run by `chip_smoke.py` phase 1)
+// counts and times the schedules; PERF.md has the numbers. A chain must stay
+// inside one asm statement: the condition code does not survive between
+// statements.
+//
+// It computes the same integer as `redc_product`: row i adds a*b[i], then
+// m_i*p with m_i = t[0] * (-p^-1) mod 2^32, then drops the zero low word.
+// Each row's t is the same integer in both schedules, so every m_i and the
+// result t = (a*b + m*p) / R are equal bit for bit, and the [0, 2p)
+// invariant above holds for `mul_lazy_cc` as it does for `mul_lazy`. Bounds:
+// between rows t < R + p < 2^257; inside a row t + a*b[i] + m*p < 2^290, so
+// ten words hold it and the top carry never leaves t[9].
+// ---------------------------------------------------------------------------
+
+// t[0..9] += a[0..7] * b: the low word of a[j] * b at t[j], the high word at
+// t[j + 1]; even j in the first chain, odd j in the second.
+__device__ __forceinline__ void mac_row(uint32_t t[kLimbs + 2], const uint32_t a[kLimbs],
+                                        uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+      "madc.hi.cc.u32 %1, %10, %18, %1;\n\t"
+      "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+      "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+      "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+      "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+      "addc.cc.u32 %8, %8, 0;\n\t"
+      "addc.u32 %9, %9, 0;\n\t"
+      "mad.lo.cc.u32 %1, %11, %18, %1;\n\t"
+      "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+      "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+      "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+      "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+      "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+      "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+      "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+      "addc.u32 %9, %9, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+        "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]),
+        "r"(a[7]), "r"(b));
+}
+
+// t[0..8] = (a*b + m*p) / R, the value `redc_product` gives (t[8] <= 1).
+template <class F>
+__device__ __forceinline__ void redc_product_cc(uint32_t t[kLimbs + 2], const uint32_t a[kLimbs],
+                                                const uint32_t b[kLimbs]) {
+  uint32_t p[kLimbs];
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) p[k] = F::p(k);
+#pragma unroll
+  for (int k = 0; k < kLimbs + 2; k++) t[k] = 0u;
+#pragma unroll
+  for (int i = 0; i < kLimbs; i++) {
+    mac_row(t, a, b[i]);
+    mac_row(t, p, t[0] * F::kInv);  // t[0] becomes 0
+#pragma unroll
+    for (int k = 0; k < kLimbs + 1; k++) t[k] = t[k + 1];
+    t[kLimbs + 1] = 0u;
+  }
+}
+
+// d = a - b over 8 limbs; returns the borrow out (0 or 1).
+__device__ __forceinline__ uint32_t sub_cc8(uint32_t d[kLimbs], const uint32_t a[kLimbs],
+                                            const uint32_t b[kLimbs]) {
+  uint32_t bw;
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]),
+        "=r"(d[7]), "=r"(bw)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+        "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  return bw & 1u;  // subc of 0 - 0 - borrow: all ones after a borrow
+}
+
+// s = a + b over 8 limbs; returns the carry out (0 or 1).
+__device__ __forceinline__ uint32_t add_cc8(uint32_t s[kLimbs], const uint32_t a[kLimbs],
+                                            const uint32_t b[kLimbs]) {
+  uint32_t c;
+  asm("add.cc.u32 %0, %9, %17;\n\t"
+      "addc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, %19;\n\t"
+      "addc.cc.u32 %3, %12, %20;\n\t"
+      "addc.cc.u32 %4, %13, %21;\n\t"
+      "addc.cc.u32 %5, %14, %22;\n\t"
+      "addc.cc.u32 %6, %15, %23;\n\t"
+      "addc.cc.u32 %7, %16, %24;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : "=r"(s[0]), "=r"(s[1]), "=r"(s[2]), "=r"(s[3]), "=r"(s[4]), "=r"(s[5]), "=r"(s[6]),
+        "=r"(s[7]), "=r"(c)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+        "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  return c;
+}
+
+template <class F>
+__device__ __forceinline__ void p_limbs(uint32_t p[kLimbs]) {
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) p[k] = F::p(k);
+}
+
+template <class F>
+__device__ __forceinline__ void p2_limbs(uint32_t p[kLimbs]) {
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) p[k] = p2<F>(k);
+}
+
+// As `mul`: canonical for a, b < R. r may alias a or b.
+template <class F>
+__device__ __forceinline__ void mul_cc(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                                       const uint32_t b[kLimbs]) {
+  uint32_t t[kLimbs + 2], p[kLimbs], d[kLimbs];
+  redc_product_cc<F>(t, a, b);
+  p_limbs<F>(p);
+  const uint32_t borrow = sub_cc8(d, t, p);
+  const bool ge = t[kLimbs] != 0 || borrow == 0;
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) r[k] = ge ? d[k] : t[k];
+}
+
+// As `mul_lazy`: in [0, 2p) for a, b in [0, 2p).
+template <class F>
+__device__ __forceinline__ void mul_lazy_cc(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                                            const uint32_t b[kLimbs]) {
+  uint32_t t[kLimbs + 2];
+  redc_product_cc<F>(t, a, b);
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) r[k] = t[k];
+}
+
+// As `add`, `sub`, `add_lazy`, `sub_lazy`, on add.cc/sub.cc chains.
+template <class F>
+__device__ __forceinline__ void add_cc(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                                       const uint32_t b[kLimbs]) {
+  uint32_t s[kLimbs], d[kLimbs], p[kLimbs];
+  const uint32_t carry = add_cc8(s, a, b);
+  p_limbs<F>(p);
+  const uint32_t borrow = sub_cc8(d, s, p);
+  const bool use_d = carry != 0 || borrow == 0;
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) r[k] = use_d ? d[k] : s[k];
+}
+
+template <class F>
+__device__ __forceinline__ void sub_cc(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                                       const uint32_t b[kLimbs]) {
+  uint32_t d[kLimbs], p[kLimbs];
+  const uint32_t mask = 0u - sub_cc8(d, a, b);  // add p back when a < b
+  p_limbs<F>(p);
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) p[k] &= mask;
+  add_cc8(r, d, p);
+}
+
+template <class F>
+__device__ __forceinline__ void add_lazy_cc(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                                            const uint32_t b[kLimbs]) {
+  uint32_t s[kLimbs], d[kLimbs], p[kLimbs];
+  add_cc8(s, a, b);  // a + b < 4p < R: no carry out
+  p2_limbs<F>(p);
+  const uint32_t borrow = sub_cc8(d, s, p);
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) r[k] = borrow ? s[k] : d[k];
+}
+
+template <class F>
+__device__ __forceinline__ void sub_lazy_cc(uint32_t r[kLimbs], const uint32_t a[kLimbs],
+                                            const uint32_t b[kLimbs]) {
+  uint32_t d[kLimbs], p[kLimbs];
+  const uint32_t mask = 0u - sub_cc8(d, a, b);
+  p2_limbs<F>(p);
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) p[k] &= mask;
+  add_cc8(r, d, p);
+}
+
+// The two sets of field operations, so one point formula can be built on
+// either: `Cios` (the C++ product above) or `Chain` (the carry chains).
+template <class F>
+struct Cios {
+  __device__ __forceinline__ static void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+    pht::mul<F>(r, a, b);
+  }
+  __device__ __forceinline__ static void add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+    pht::add<F>(r, a, b);
+  }
+  __device__ __forceinline__ static void sub(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+    pht::sub<F>(r, a, b);
+  }
+};
+
+template <class F>
+struct Chain {
+  __device__ __forceinline__ static void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+    mul_cc<F>(r, a, b);
+  }
+  __device__ __forceinline__ static void add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+    add_cc<F>(r, a, b);
+  }
+  __device__ __forceinline__ static void sub(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+    sub_cc<F>(r, a, b);
+  }
+};
+
 }  // namespace pht

@@ -1,10 +1,13 @@
 // K2, K3, K4: batched BN254 G1 point additions over Fq, Jacobian coordinates
-// in Montgomery form, infinity encoded as Z == 0 whatever X and Y hold.
+// in Montgomery form, infinity encoded as Z == 0 whatever X and Y hold; and
+// the MSM's window sums built on K2's addition.
 //
 // Replaces the Pallas kernels of paillier_halo2_tpu/ec/pallas_point.py:
 //   g1_jadd<nodouble>          -> K2 `padd_pallas` (:230, `_jacobian_add_full` :137-202)
 //   g1_madd<nodouble, false>   -> K3 `padd_mixed_pallas` (:265, `_mixed_add_full` :65-134)
 //   g1_madd<nodouble, true>    -> K4 `padd_mixed_packed_pallas` (:309, `_packed_kernel` :292-305)
+//   g1_window_sums             -> K2's use in `_window_sums`
+//                                 (paillier_halo2_tpu/msm/pippenger.py:403-432)
 // The formulas and every edge-case select (P+inf, inf+Q, P+P through the
 // doubling branch, P+(-P) to infinity) follow pallas_point.py:93-133 and
 // :163-201 in the same order, so outputs are bit-identical to the JAX
@@ -13,10 +16,34 @@
 // the caller's distinct-points contract then degrades to Z3 == 0 (h == 0
 // makes Z3 = Z1*Z2*h vanish), never to a wrong finite point.
 //
-// One thread per lane. Bound: registers. A Jacobian point is 24 limbs and the
-// full add keeps about a dozen 8-limb temporaries live around the Montgomery
-// products (16 + 7 for K2, 11 + 7 for K3/K4), so blocks are small (128
-// threads) to leave room; the arithmetic itself is compute-bound like K1.
+// K2 (`jadd`) runs on the carry-chain Fq product (`pht::Chain`, field.cuh)
+// and takes the doubling as a branch, on the lanes with h == r == 0 only,
+// where the JAX formula computes it on every lane and selects: 16 products a
+// lane instead of 23. K3 and K4 keep the C++ CIOS product (`pht::Cios`) and
+// the select.
+//
+// One thread per lane for the batched adds. Bound: registers. A Jacobian
+// point is 24 limbs and the full add keeps about a dozen 8-limb temporaries
+// live around the Montgomery products, so blocks are small (128 threads) to
+// leave room; the arithmetic itself is compute-bound like K1.
+//
+// The window sums: T_w = sum_b b * B_{w,b} by a Hillis-Steele suffix scan,
+// then a Hillis-Steele reduction, over the bucket axis of each row, with the
+// masked pairs of `_window_sums` in the same order, so T_w equals the
+// composition of 2 * ceil(log2 B) K2 launches bit for bit (the X and Y a
+// masked operand keeps matter when both sides are infinity, so they are
+// taken from the rolled lane as `torch.roll` takes them). The TPU version is
+// that composition: each step reads and writes every (row, bucket) point
+// through HBM, with a roll and a select around each add. Here one block owns
+// one row: its B points (96 B each, coordinates limb-major with stride B, so
+// a warp's reads of one limb hit 32 banks) stay in shared memory, double-
+// buffered (192 B per bucket: 196,800 B at B = 1,025, above 48 KB through
+// cudaFuncSetAttribute), each thread adding ceil(B / threads) lanes per step
+// between two barriers; one launch per MSM call. The reduction computes only
+// the lanes that reach lane 0 (see the kernel). Bound on this card: not the
+// multiply-adds but occupancy. A row is one block of at most 384 threads, so
+// 24 rows (the 2^20 MSM) fill 24 of 132 SMs with 11 warps each, and every
+// warp issues one dependent carry chain after another.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -30,76 +57,75 @@ constexpr int kThreads = 128;
 constexpr int L = pht::kLimbs;
 
 // dbl-2009-l (a = 0) of (X1, Y1, Z1), as pallas_point.py:98-112.
+template <class Op>
 __device__ __forceinline__ void dbl(uint32_t Xd[L], uint32_t Yd[L], uint32_t Zd[L],
                                     const uint32_t X1[L], const uint32_t Y1[L],
                                     const uint32_t Z1[L]) {
   uint32_t A[L], B[L], C[L], t[L], D[L], E[L], Fv[L], C8[L], YZ[L];
-  pht::mul<F>(A, X1, X1);
-  pht::mul<F>(B, Y1, Y1);
-  pht::mul<F>(C, B, B);
-  pht::add<F>(t, X1, B);
-  pht::mul<F>(t, t, t);
-  pht::sub<F>(D, t, A);
-  pht::sub<F>(D, D, C);
-  pht::add<F>(D, D, D);
-  pht::add<F>(E, A, A);
-  pht::add<F>(E, E, A);
-  pht::mul<F>(Fv, E, E);
-  pht::add<F>(t, D, D);
-  pht::sub<F>(Xd, Fv, t);
-  pht::add<F>(C8, C, C);
-  pht::add<F>(C8, C8, C8);
-  pht::add<F>(C8, C8, C8);
-  pht::sub<F>(t, D, Xd);
-  pht::mul<F>(t, E, t);
-  pht::sub<F>(Yd, t, C8);
-  pht::mul<F>(YZ, Y1, Z1);
-  pht::add<F>(Zd, YZ, YZ);
+  Op::mul(A, X1, X1);
+  Op::mul(B, Y1, Y1);
+  Op::mul(C, B, B);
+  Op::add(t, X1, B);
+  Op::mul(t, t, t);
+  Op::sub(D, t, A);
+  Op::sub(D, D, C);
+  Op::add(D, D, D);
+  Op::add(E, A, A);
+  Op::add(E, E, A);
+  Op::mul(Fv, E, E);
+  Op::add(t, D, D);
+  Op::sub(Xd, Fv, t);
+  Op::add(C8, C, C);
+  Op::add(C8, C8, C8);
+  Op::add(C8, C8, C8);
+  Op::sub(t, D, Xd);
+  Op::mul(t, E, t);
+  Op::sub(Yd, t, C8);
+  Op::mul(YZ, Y1, Z1);
+  Op::add(Zd, YZ, YZ);
 }
 
-// Jacobian + Jacobian, as `_jacobian_add_full`.
+// Jacobian + Jacobian, as `_jacobian_add_full`, on the carry-chain product.
 template <bool kNoDouble>
 __device__ __forceinline__ void jadd(uint32_t X3[L], uint32_t Y3[L], uint32_t Z3[L],
                                      const uint32_t X1[L], const uint32_t Y1[L],
                                      const uint32_t Z1[L], const uint32_t X2[L],
                                      const uint32_t Y2[L], const uint32_t Z2[L]) {
+  using Op = pht::Chain<F>;
   uint32_t z1z1[L], z2z2[L], u1[L], u2[L], s1[L], s2[L], h[L], r[L], t[L], hhh[L], v[L];
-  pht::mul<F>(z1z1, Z1, Z1);
-  pht::mul<F>(z2z2, Z2, Z2);
-  pht::mul<F>(u1, X1, z2z2);
-  pht::mul<F>(u2, X2, z1z1);
-  pht::mul<F>(t, Z2, z2z2);
-  pht::mul<F>(s1, Y1, t);
-  pht::mul<F>(t, Z1, z1z1);
-  pht::mul<F>(s2, Y2, t);
-  pht::sub<F>(h, u2, u1);
-  pht::sub<F>(r, s2, s1);
+  Op::mul(z1z1, Z1, Z1);
+  Op::mul(z2z2, Z2, Z2);
+  Op::mul(u1, X1, z2z2);
+  Op::mul(u2, X2, z1z1);
+  Op::mul(t, Z2, z2z2);
+  Op::mul(s1, Y1, t);
+  Op::mul(t, Z1, z1z1);
+  Op::mul(s2, Y2, t);
+  Op::sub(h, u2, u1);
+  Op::sub(r, s2, s1);
 
-  pht::mul<F>(t, h, h);      // hh
-  pht::mul<F>(hhh, h, t);    // hhh
-  pht::mul<F>(v, u1, t);     // v = u1 * hh
-  pht::mul<F>(t, r, r);      // rr
-  pht::sub<F>(X3, t, hhh);
-  pht::add<F>(t, v, v);
-  pht::sub<F>(X3, X3, t);
-  pht::sub<F>(t, v, X3);
-  pht::mul<F>(t, r, t);
-  pht::mul<F>(s1, s1, hhh);
-  pht::sub<F>(Y3, t, s1);
-  pht::mul<F>(t, Z1, Z2);
-  pht::mul<F>(Z3, t, h);
+  Op::mul(t, h, h);      // hh
+  Op::mul(hhh, h, t);    // hhh
+  Op::mul(v, u1, t);     // v = u1 * hh
+  Op::mul(t, r, r);      // rr
+  Op::sub(X3, t, hhh);
+  Op::add(t, v, v);
+  Op::sub(X3, X3, t);
+  Op::sub(t, v, X3);
+  Op::mul(t, r, t);
+  Op::mul(s1, s1, hhh);
+  Op::sub(Y3, t, s1);
+  Op::mul(t, Z1, Z2);
+  Op::mul(Z3, t, h);
 
   const bool p_inf = pht::is_zero(Z1);
   const bool q_inf = pht::is_zero(Z2);
   if (!kNoDouble) {
-    uint32_t Xd[L], Yd[L], Zd[L];
-    dbl(Xd, Yd, Zd, X1, Y1, Z1);
     const bool h_zero = pht::is_zero(h);
     const bool r_zero = pht::is_zero(r);
-    const bool is_dbl = h_zero && r_zero;
-    pht::select(X3, is_dbl, Xd, X3);
-    pht::select(Y3, is_dbl, Yd, Y3);
-    pht::select(Z3, is_dbl, Zd, Z3);
+    if (h_zero && r_zero) {  // P == Q: the doubling runs on these lanes only
+      dbl<Op>(X3, Y3, Z3, X1, Y1, Z1);
+    }
     const bool annihilate = h_zero && !r_zero && !p_inf && !q_inf;
     uint32_t one[L], zero[L];
     pht::set_one<F>(one);
@@ -149,7 +175,7 @@ __device__ __forceinline__ void madd(uint32_t X3[L], uint32_t Y3[L], uint32_t Z3
   pht::set_zero(zero);
   if (!kNoDouble) {
     uint32_t Xd[L], Yd[L], Zd[L];
-    dbl(Xd, Yd, Zd, X1, Y1, Z1);
+    dbl<pht::Cios<F>>(Xd, Yd, Zd, X1, Y1, Z1);
     const bool h_zero = pht::is_zero(h);
     const bool r_zero = pht::is_zero(r);
     const bool is_dbl = h_zero && r_zero;
@@ -225,6 +251,84 @@ __global__ void g1_madd_kernel(const uint32_t* __restrict__ x1, const uint32_t* 
   pht::store(oz, n, i, Z3);
 }
 
+// Window sums, one block per row. Coordinates (8, rows, B) limb-first; the
+// outputs (8, rows). Shared memory: two buffers of 24 * B words, word k of
+// coordinate c of bucket b at [(c * 8 + k) * B + b].
+constexpr int kWsMaxThreads = 384;  // at most 170 registers a thread
+constexpr int kWsMaxBuckets = 1210;  // 2 * 96 * B bytes within a block's 232,448
+
+__device__ __forceinline__ void smem_point(uint32_t X[L], uint32_t Y[L], uint32_t Z[L],
+                                           const uint32_t* buf, int B, int b) {
+#pragma unroll
+  for (int k = 0; k < L; k++) {
+    X[k] = buf[k * B + b];
+    Y[k] = buf[(L + k) * B + b];
+    Z[k] = buf[(2 * L + k) * B + b];
+  }
+}
+
+__global__ void __launch_bounds__(kWsMaxThreads, 1)
+    g1_window_sums_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                          const uint32_t* __restrict__ z, uint32_t* __restrict__ ox,
+                          uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int rows, int B,
+                          int log_b) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* cur = smem;
+  uint32_t* nxt = smem + 3 * L * B;
+  const int row = blockIdx.x;
+  const int64_t limb_stride = (int64_t)rows * B;
+  const uint32_t* in[3] = {x, y, z};
+  for (int e = threadIdx.x; e < 3 * L * B; e += blockDim.x) {
+    const int ck = e / B, b = e - ck * B;
+    cur[e] = in[ck / L][(ck % L) * limb_stride + (int64_t)row * B + b];
+  }
+  __syncthreads();
+  for (int phase = 0; phase < 2; phase++) {
+    if (phase == 1) {  // t = masked(s, idx >= 1): drop S_0, keep its X and Y
+      if (threadIdx.x < L) cur[(2 * L + threadIdx.x) * B] = 0u;
+      __syncthreads();
+    }
+    for (int i = 0; i < log_b; i++) {
+      const int step = 1 << i;
+      // The scan needs every lane. The reduction's result is lane 0, which
+      // after step i depends only on the lanes (m * 2^(i+1)) mod B,
+      // m < 2^(log_b - i - 1): those are computed (each once: a wrapped lane
+      // that is also a multiple is skipped), with the same pairs as the full
+      // step, so lane 0 keeps its bits and the work drops from B log B adds
+      // to about 2^log_b.
+      const int stride = phase == 0 ? 1 : step << 1;
+      const int count = phase == 0 ? B : 1 << (log_b - i - 1);
+      for (int m = threadIdx.x; m < count; m += blockDim.x) {
+        int b = m * stride;
+        if (b >= B) {
+          b -= B;
+          if (b % stride == 0) continue;
+        }
+        const int q = b + step < B ? b + step : b + step - B;  // torch.roll(-step)
+        uint32_t X1[L], Y1[L], Z1[L], X2[L], Y2[L], Z2[L], X3[L], Y3[L], Z3[L];
+        smem_point(X1, Y1, Z1, cur, B, b);
+        smem_point(X2, Y2, Z2, cur, B, q);
+        if (b >= B - step) pht::set_zero(Z2);  // masked: past the last bucket
+        jadd<false>(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2);
+#pragma unroll
+        for (int k = 0; k < L; k++) {
+          nxt[k * B + b] = X3[k];
+          nxt[(L + k) * B + b] = Y3[k];
+          nxt[(2 * L + k) * B + b] = Z3[k];
+        }
+      }
+      __syncthreads();
+      uint32_t* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+  }
+  if (threadIdx.x < 3 * L) {  // lane 0 of the reduction is T_w
+    uint32_t* out[3] = {ox, oy, oz};
+    out[threadIdx.x / L][(threadIdx.x % L) * rows + row] = cur[threadIdx.x * B];
+  }
+}
+
 inline dim3 grid_for(long long n) { return dim3((unsigned)((n + kThreads - 1) / kThreads)); }
 
 }  // namespace
@@ -247,6 +351,29 @@ extern "C" int pht_g1_jadd(const void* x1, const void* y1, const void* z1, const
   } else {
     args(g1_jadd_kernel<false>);
   }
+  return (int)cudaGetLastError();
+}
+
+// Window sums: x, y, z (8, rows, n_buckets) canonical Jacobian buckets,
+// ox, oy, oz (8, rows). Returns cudaErrorInvalidValue for n_buckets outside
+// [1, 1210], whose two buffers would not fit a block's shared memory.
+extern "C" int pht_g1_window_sums(const void* x, const void* y, const void* z, void* ox,
+                                  void* oy, void* oz, long long rows, long long n_buckets,
+                                  void* stream) {
+  if (rows <= 0) return 0;
+  if (n_buckets < 1 || n_buckets > kWsMaxBuckets) return (int)cudaErrorInvalidValue;
+  const int B = (int)n_buckets;
+  int log_b = 0;  // ceil(log2 B), the Hillis-Steele step count
+  while ((1 << log_b) < B) log_b++;
+  const int smem = 2 * 3 * L * B * (int)sizeof(uint32_t);
+  cudaError_t e = cudaFuncSetAttribute(g1_window_sums_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int passes = (B + kWsMaxThreads - 1) / kWsMaxThreads;  // lanes per thread per step
+  const int threads = ((B + passes - 1) / passes + 31) / 32 * 32;
+  g1_window_sums_kernel<<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z, (uint32_t*)ox, (uint32_t*)oy,
+      (uint32_t*)oz, (int)rows, B, log_b);
   return (int)cudaGetLastError();
 }
 

@@ -1,16 +1,19 @@
 // K5, K6: the signed-window MSM's G1 additions over Fq on redundant-form
 // accumulators (field.cuh: every coordinate in [0, 2p), Montgomery form,
-// infinity encoded as Z == 0 exactly).
+// infinity encoded as Z == 0 exactly), and K5's bucket loop.
 //
 // Replaces the Pallas kernels of paillier_halo2_tpu/ec/lazy_point.py:
-//   g1_madd_lazy -> K5 `padd_mixed_packed_lazy` (:172, `_mixed_kernel` :150-168,
-//                   formula `_mixed_add_lazy` :51-92): one bucket step, the
-//                   accumulator plus an affine point from a packed (n, 16) row,
-//                   negated (y -> p - y) where `neg` is set, passed through
-//                   where `mask_off` is set;
-//   g1_jadd_lazy -> K6 `padd_lazy` (:220, `_jadd_kernel` :205-216, formula
-//                   `_jacobian_add_lazy` :95-129): the sub-accumulator merge,
-//                   either side possibly at infinity.
+//   g1_madd_lazy   -> K5 `padd_mixed_packed_lazy` (:172, `_mixed_kernel` :150-168,
+//                     formula `_mixed_add_lazy` :51-92): one bucket step, the
+//                     accumulator plus an affine point from a packed (n, 16)
+//                     row, negated (y -> p - y) where `neg` is set, passed
+//                     through where `mask_off` is set;
+//   g1_bucket_lazy -> the same step under the `lax.while_loop` of
+//                     paillier_halo2_tpu/msm/pippenger.py:305-330: the whole
+//                     signed bucket loop in one launch (below);
+//   g1_jadd_lazy   -> K6 `padd_lazy` (:220, `_jadd_kernel` :205-216, formula
+//                     `_jacobian_add_lazy` :95-129): the sub-accumulator merge,
+//                     either side possibly at infinity.
 // The formulas are K3's and K2's (g1_add.cu) with every product, sum and
 // difference taken in the redundant form, so no normalisation runs inside
 // the hot formula; the MSM canonicalises once after the merge. Both are
@@ -20,10 +23,27 @@
 // the JAX package's order: in K6 the q_inf select is outermost (:124-126),
 // so with both sides at infinity X3, Y3 come from P, unlike K2.
 //
+// K5's formula (both kernels) runs on the carry-chain product
+// (`mul_lazy_cc`, field.cuh); K6 keeps the C++ CIOS product.
+//
 // One thread per lane, 128 threads a block, ragged edge masked in the kernel.
 // Bound: integer multiply-adds, 11 (K5) or 16 (K6) Montgomery products of
 // 264 each per lane, against 258 or 288 bytes of traffic; registers limit
-// the blocks in flight, as for the nodouble variants of g1_add.cu.
+// the blocks in flight.
+//
+// The bucket loop. On the TPU a grid runs in order, so the JAX package runs
+// one bucket step per `while_loop` round, every lane's accumulator through
+// HBM each round, with the gathers around it as separate XLA ops. Hopper's
+// blocks run in parallel and nothing carries between them, so here the loop
+// moves inside the thread: a thread owns one (window, bucket, sub-
+// accumulator) lane, holds its accumulator in registers, walks its bucket's
+// sorted run j = sub, sub + nsub, ... < count, loads each point's packed row
+// as four 16-byte loads, and writes X, Y, Z once, at the lane's place in the
+// unsorted lane order. The additions of a lane come in the rounds' order, so
+// its accumulator is bit-identical to the round loop's. The lanes arrive
+// sorted by the number of additions they need, so the threads of a warp
+// finish together. Bound: the multiply-adds, 11 products per lane-round; the
+// reads (64 B of row, 4 B of order, 1 B of neg per lane-round) are below it.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -43,25 +63,25 @@ __device__ __forceinline__ void madd_lazy(uint32_t X3[L], uint32_t Y3[L], uint32
                                           const uint32_t Z1[L], const uint32_t X2[L],
                                           const uint32_t Y2[L], bool q_inf) {
   uint32_t z1z1[L], u2[L], s2[L], h[L], r[L], t[L], hhh[L], v[L];
-  pht::mul_lazy<F>(z1z1, Z1, Z1);
-  pht::mul_lazy<F>(u2, X2, z1z1);
-  pht::mul_lazy<F>(t, Z1, z1z1);
-  pht::mul_lazy<F>(s2, Y2, t);
-  pht::sub_lazy<F>(h, u2, X1);
-  pht::sub_lazy<F>(r, s2, Y1);
+  pht::mul_lazy_cc<F>(z1z1, Z1, Z1);
+  pht::mul_lazy_cc<F>(u2, X2, z1z1);
+  pht::mul_lazy_cc<F>(t, Z1, z1z1);
+  pht::mul_lazy_cc<F>(s2, Y2, t);
+  pht::sub_lazy_cc<F>(h, u2, X1);
+  pht::sub_lazy_cc<F>(r, s2, Y1);
 
-  pht::mul_lazy<F>(t, h, h);      // hh
-  pht::mul_lazy<F>(hhh, h, t);    // hhh
-  pht::mul_lazy<F>(v, X1, t);     // v = X1 * hh
-  pht::mul_lazy<F>(t, r, r);      // rr
-  pht::sub_lazy<F>(X3, t, hhh);
-  pht::add_lazy<F>(t, v, v);
-  pht::sub_lazy<F>(X3, X3, t);
-  pht::sub_lazy<F>(t, v, X3);
-  pht::mul_lazy<F>(t, r, t);
-  pht::mul_lazy<F>(u2, Y1, hhh);  // u2 reused as Y1 * hhh
-  pht::sub_lazy<F>(Y3, t, u2);
-  pht::mul_lazy<F>(Z3, Z1, h);
+  pht::mul_lazy_cc<F>(t, h, h);      // hh
+  pht::mul_lazy_cc<F>(hhh, h, t);    // hhh
+  pht::mul_lazy_cc<F>(v, X1, t);     // v = X1 * hh
+  pht::mul_lazy_cc<F>(t, r, r);      // rr
+  pht::sub_lazy_cc<F>(X3, t, hhh);
+  pht::add_lazy_cc<F>(t, v, v);
+  pht::sub_lazy_cc<F>(X3, X3, t);
+  pht::sub_lazy_cc<F>(t, v, X3);
+  pht::mul_lazy_cc<F>(t, r, t);
+  pht::mul_lazy_cc<F>(u2, Y1, hhh);  // u2 reused as Y1 * hhh
+  pht::sub_lazy_cc<F>(Y3, t, u2);
+  pht::mul_lazy_cc<F>(Z3, Z1, h);
 
   const bool p_inf = pht::is_zero(Z1);
   uint32_t one[L], zero[L];
@@ -119,6 +139,13 @@ __device__ __forceinline__ void jadd_lazy(uint32_t X3[L], uint32_t Y3[L], uint32
   pht::select(Z3, q_inf, Z1, Z3);
 }
 
+// -P = (x, p - y): y in [0, p) gives p - y in (0, p].
+__device__ __forceinline__ void negate_y(uint32_t Y[L]) {
+  uint32_t p[L];
+  pht::p_limbs<F>(p);
+  pht::sub_cc8(Y, p, Y);
+}
+
 // The affine operand arrives as (n, 16) rows, words 0-7 = X limbs, 8-15 = Y
 // limbs (canonical Montgomery, the pack_points_dense layout K4 reads).
 __global__ void g1_madd_lazy_kernel(const uint32_t* __restrict__ x1,
@@ -141,15 +168,7 @@ __global__ void g1_madd_lazy_kernel(const uint32_t* __restrict__ x1,
     X2[k] = row[k];
     Y2[k] = row[L + k];
   }
-  if (neg[i]) {  // -P = (x, p - y): y in [0, p) gives p - y in (0, p]
-    uint32_t borrow = 0;
-#pragma unroll
-    for (int k = 0; k < L; k++) {
-      uint64_t t = (uint64_t)F::p(k) - Y2[k] - borrow;
-      Y2[k] = (uint32_t)t;
-      borrow = (uint32_t)(t >> 63);
-    }
-  }
+  if (neg[i]) negate_y(Y2);
   madd_lazy(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, mask_off[i] != 0);
   pht::store(ox, n, i, X3);
   pht::store(oy, n, i, Y3);
@@ -179,6 +198,62 @@ __global__ void g1_jadd_lazy_kernel(const uint32_t* __restrict__ x1,
   pht::store(oz, n, i, Z3);
 }
 
+// The bucket loop. Lane i (in need-sorted order) adds the points
+// order[win*n + seg + j] for j = sub, sub + nsub, ... < count, each negated
+// where neg[win*n + seg + j] is set, to an accumulator that starts at
+// infinity (one, one, 0), and writes it to column lane[i] of the (8, n_lanes)
+// outputs. rows: (n, 16) words, 16-byte aligned.
+constexpr int kLoopMinBlocks = 4;  // 128 threads x 4 blocks: at most 128 registers
+
+__global__ void __launch_bounds__(kThreads, kLoopMinBlocks)
+    g1_bucket_lazy_kernel(const uint4* __restrict__ rows, const int32_t* __restrict__ order,
+                          const uint8_t* __restrict__ neg, const int32_t* __restrict__ seg,
+                          const int32_t* __restrict__ count, const int32_t* __restrict__ sub,
+                          const int32_t* __restrict__ nsub, const int32_t* __restrict__ win,
+                          const int32_t* __restrict__ lane, uint32_t* __restrict__ ox,
+                          uint32_t* __restrict__ oy, uint32_t* __restrict__ oz,
+                          int64_t n_lanes, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_lanes) return;
+  const int64_t base = (int64_t)win[i] * n + seg[i];
+  const int c = count[i], step = nsub[i];
+  uint32_t X[L], Y[L], Z[L];
+  pht::set_one<F>(X);
+  pht::set_one<F>(Y);
+  pht::set_zero(Z);
+  // The next point's row is loaded while the current one is added: its two
+  // dependent reads (order, then the row) overlap the arithmetic.
+  uint4 w0, w1, w2, w3;
+  bool ng = false;
+  int j = sub[i];
+  if (j < c) {
+    const uint4* row = rows + (int64_t)order[base + j] * 4;
+    w0 = row[0], w1 = row[1], w2 = row[2], w3 = row[3];
+    ng = neg[base + j] != 0;
+  }
+  for (; j < c; j += step) {
+    uint32_t X2[L] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    uint32_t Y2[L] = {w2.x, w2.y, w2.z, w2.w, w3.x, w3.y, w3.z, w3.w};
+    const bool negate = ng;
+    if (j + step < c) {
+      const int64_t at = base + j + step;
+      const uint4* row = rows + (int64_t)order[at] * 4;
+      w0 = row[0], w1 = row[1], w2 = row[2], w3 = row[3];
+      ng = neg[at] != 0;
+    }
+    if (negate) negate_y(Y2);
+    uint32_t X3[L], Y3[L], Z3[L];
+    madd_lazy(X3, Y3, Z3, X, Y, Z, X2, Y2, false);
+    pht::copy(X, X3);
+    pht::copy(Y, Y3);
+    pht::copy(Z, Z3);
+  }
+  const int64_t o = lane[i];
+  pht::store(ox, n_lanes, o, X);
+  pht::store(oy, n_lanes, o, Y);
+  pht::store(oz, n_lanes, o, Z);
+}
+
 inline dim3 grid_for(long long n) { return dim3((unsigned)((n + kThreads - 1) / kThreads)); }
 
 }  // namespace
@@ -205,5 +280,22 @@ extern "C" int pht_g1_jadd_lazy(const void* x1, const void* y1, const void* z1, 
   g1_jadd_lazy_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1, (const uint32_t*)x2,
       (const uint32_t*)y2, (const uint32_t*)z2, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+// The bucket loop: rows (n, 16) uint32, 16-byte aligned; order (W * n)
+// int32 point indices by sorted position; neg (W * n) bytes by sorted
+// position; seg, count, sub, nsub, win, lane (n_lanes,) int32 in need-sorted
+// order; outputs (8, n_lanes) uint32 in [0, 2p).
+extern "C" int pht_g1_bucket_lazy(const void* rows, const void* order, const void* neg,
+                                  const void* seg, const void* count, const void* sub,
+                                  const void* nsub, const void* win, const void* lane, void* ox,
+                                  void* oy, void* oz, long long n_lanes, long long n,
+                                  void* stream) {
+  if (n_lanes <= 0) return 0;
+  g1_bucket_lazy_kernel<<<grid_for(n_lanes), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)rows, (const int32_t*)order, (const uint8_t*)neg, (const int32_t*)seg,
+      (const int32_t*)count, (const int32_t*)sub, (const int32_t*)nsub, (const int32_t*)win,
+      (const int32_t*)lane, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n_lanes, n);
   return (int)cudaGetLastError();
 }

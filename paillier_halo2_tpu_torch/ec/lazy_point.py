@@ -7,6 +7,9 @@ Counterpart of `paillier_halo2_tpu/ec/lazy_point.py:1`:
 - `padd_mixed_packed_lazy` (K5) <- `padd_mixed_packed_lazy` (:172): one bucket
   step, accumulator + (+-P) with P from packed `(N, 16)` rows; `neg` lanes
   use p - y, `mask_off` lanes pass the accumulator through;
+- `bucket_loop_lazy` <- K5 under the `lax.while_loop` of
+  `paillier_halo2_tpu/msm/pippenger.py:305-330`: the signed MSM's whole
+  bucket loop in one launch, each lane's additions in the rounds' order;
 - `padd_lazy` (K6) <- `padd_lazy` (:220): Jacobian + Jacobian, either side
   possibly at infinity, the q_inf select outermost (:124-126);
 - `inf_acc`, `to_lazy_jp`, `canonicalize_jp` <- :243-270, the pipeline's
@@ -31,7 +34,7 @@ from ..ff.limbs16 import M32, to_i32, u64
 from ..utils import kernels
 from .point_kernels import PACK_WORDS, SPEC, _check, _outputs, _sel, unpack_rows
 
-LAUNCHES = {"padd_mixed_packed_lazy": 0, "padd_lazy": 0}
+LAUNCHES = {"padd_mixed_packed_lazy": 0, "padd_lazy": 0, "bucket_loop_lazy": 0}
 
 
 def _mul(a, b):
@@ -108,6 +111,48 @@ def padd_lazy_plain(X1, Y1, Z1, X2, Y2, Z2):
     return X3, Y3, Z3
 
 
+def _need(count, sub, nsub):
+    """Additions a lane makes: j = sub, sub + nsub, ... < count."""
+    return torch.clamp(count - sub + nsub - 1, min=0) // nsub
+
+
+def bucket_rounds(step, packed, order, neg, seg, count, sub, nsub, win, lane, n: int):
+    """The bucket loop as gather-rounds, each round one call of `step`, a
+    mixed add `step(X, Y, Z, rows, mask_off, neg)` (K5's plain version, K5
+    itself, or K4 with neg=None): round r adds, on every lane that still has
+    a point, point order[win*n + seg + j] with j = sub + r*nsub, negated
+    where neg at that sorted position is set; accumulators start at infinity
+    (one, one, 0). The lanes must come sorted by need, descending, so round r
+    runs on a prefix of them. Returns (8, n_lanes) accumulators, lane i's in
+    column lane[i]."""
+    need = _need(count.long(), sub.long(), nsub.long())
+    if need.numel() > 1 and bool((need[1:] > need[:-1]).any()):
+        raise ValueError("bucket_rounds: lanes must be sorted by need, descending")
+    hist = torch.bincount(need).cpu().tolist()  # the one readback per call
+    active = [sum(hist[r + 1 :]) for r in range(len(hist) - 1)]
+    seg, count, sub, nsub, win, order = (x.long() for x in (seg, count, sub, nsub, win, order))
+    acc = inf_acc(seg.shape[0], packed.device)
+    for r, m in enumerate(active):
+        j = sub[:m] + r * nsub[:m]  # index within the bucket's sorted run
+        at = win[:m] * n + torch.clamp(seg[:m] + j, 0, n - 1)
+        rows = packed.index_select(0, order[at])  # (m, 16)
+        mask_off = j >= count[:m]
+        lanes = tuple(c[:, :m].contiguous() for c in acc)
+        out = step(*lanes, rows, mask_off, None if neg is None else neg[at])
+        for c, o in zip(acc, out):
+            c[:, :m] = o
+    placed = tuple(torch.empty_like(c) for c in acc)
+    for p, c in zip(placed, acc):
+        p[:, lane.long()] = c
+    return placed
+
+
+def bucket_loop_lazy_plain(packed, order, neg, seg, count, sub, nsub, win, lane, n: int):
+    """The bucket loop's function: `bucket_rounds` on K5's plain version."""
+    return bucket_rounds(padd_mixed_packed_lazy_plain, packed, order, neg, seg, count, sub, nsub,
+                         win, lane, n)
+
+
 # -- wrappers ------------------------------------------------------------------
 
 
@@ -132,6 +177,35 @@ def padd_mixed_packed_lazy(X1, Y1, Z1, packed, mask_off, neg):
     )
     kernels.check(rc, "padd_mixed_packed_lazy")
     LAUNCHES["padd_mixed_packed_lazy"] += 1
+    return out
+
+
+def bucket_loop_lazy(packed, order, neg, seg, count, sub, nsub, win, lane, n: int):
+    """The signed MSM's bucket loop in one launch (`bucket_loop_lazy_plain`).
+    packed: (n, 16) int32 rows; order: (W*n,) int32 point indices and neg:
+    (W*n,) bool, both by sorted position; seg, count, sub, nsub, win, lane:
+    (n_lanes,) int32 lane table, best sorted by need descending so a warp's
+    lanes finish together."""
+    n_lanes = seg.shape[0] if seg.dim() == 1 else -1
+    m = order.shape[0] if order.dim() == 1 else -1
+    table = [(t, torch.int32, (n_lanes,)) for t in (seg, count, sub, nsub, win, lane)]
+    _check("bucket_loop_lazy", (), 0, packed.device,
+           [(packed, torch.int32, (n, PACK_WORDS)), (order, torch.int32, (m,)),
+            (neg, torch.bool, (m,))] + table)
+    if packed.device.type == "cpu":
+        return bucket_loop_lazy_plain(packed, order, neg, seg, count, sub, nsub, win, lane, n)
+    if packed.data_ptr() % 16:
+        raise ValueError("bucket_loop_lazy: packed rows must be 16-byte aligned")
+    out = tuple(torch.empty((8, n_lanes), dtype=torch.int32, device=packed.device)
+                for _ in range(3))
+    if n_lanes == 0:
+        return out
+    rc = kernels.lib().pht_g1_bucket_lazy(
+        *(t.data_ptr() for t in (packed, order, neg, seg, count, sub, nsub, win, lane)),
+        *(c.data_ptr() for c in out), n_lanes, n, kernels.stream_ptr(packed.device),
+    )
+    kernels.check(rc, "bucket_loop_lazy")
+    LAUNCHES["bucket_loop_lazy"] += 1
     return out
 
 

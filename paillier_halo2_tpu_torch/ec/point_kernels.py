@@ -7,6 +7,9 @@ Counterpart of `paillier_halo2_tpu/ec/pallas_point.py:1`:
 - `g1_madd`          <- `padd_mixed_pallas` (:265), Jacobian + affine (K3)
 - `g1_madd_packed`   <- `padd_mixed_packed_pallas` (:309), the affine operand
                         as packed `(N, 16)` rows (K4)
+- `window_sums`      <- K2's use in `_window_sums`
+                        (`paillier_halo2_tpu/msm/pippenger.py:403-432`): the
+                        MSM's bucket weighting, one launch for every row
 
 Coordinates are `(8, N)` int32 Fq limb tensors in Montgomery form; `q_inf`
 is an `(N,)` bool tensor. `nodouble=True` drops the doubling branch: a lane
@@ -26,7 +29,8 @@ from ..utils import kernels
 
 SPEC = f.FQ
 PACK_WORDS = 16  # 8 limbs of X, then 8 of Y
-LAUNCHES = {"g1_jadd": 0, "g1_madd": 0, "g1_madd_packed": 0}
+LAUNCHES = {"g1_jadd": 0, "g1_madd": 0, "g1_madd_packed": 0, "window_sums": 0}
+WINDOW_MAX_BUCKETS = 1210  # two buffers of B points in a block's shared memory
 
 
 # -- plain versions ------------------------------------------------------------
@@ -147,6 +151,31 @@ def g1_madd_packed_plain(X1, Y1, Z1, packed, q_inf, nodouble: bool = False):
     return g1_madd_plain(X1, Y1, Z1, X2, Y2, q_inf, nodouble)
 
 
+def window_sums_plain(X, Y, Z):
+    """The window sums' function: `_window_sums` (JAX pippenger.py:401-432)
+    on (8, rows, B) canonical Jacobian buckets, T_w = sum_b b * B_{w,b} by a
+    Hillis-Steele suffix scan, then a Hillis-Steele reduction, over the
+    bucket axis, each step one full add over every (row, bucket) lane.
+    Returns T as (8, rows) coordinates."""
+    n_buckets = X.shape[2]
+    idx = torch.arange(n_buckets, device=X.device)
+    log_b = (n_buckets - 1).bit_length()
+
+    def step_add(p, step):  # p + roll(p, -step), lanes past the end masked to Z = 0
+        q = tuple(torch.roll(c, -step, dims=2) for c in p)
+        q = (q[0], q[1], torch.where(idx < n_buckets - step, q[2], 0))
+        out = g1_jadd_plain(*(c.reshape(8, -1) for c in (*p, *q)))
+        return tuple(c.reshape(X.shape) for c in out)
+
+    s = (X, Y, Z)
+    for i in range(log_b):
+        s = step_add(s, 1 << i)
+    t = (s[0], s[1], torch.where(idx >= 1, s[2], 0))  # drop S_0
+    for i in range(log_b):
+        t = step_add(t, 1 << i)
+    return tuple(c[:, :, 0].contiguous() for c in t)
+
+
 # -- wrappers ------------------------------------------------------------------
 
 
@@ -227,3 +256,31 @@ def g1_madd_packed(X1, Y1, Z1, packed, q_inf, nodouble: bool = False):
     if X1.device.type == "cpu":
         return g1_madd_packed_plain(X1, Y1, Z1, packed, q_inf, nodouble)
     return _madd_launch(X1, Y1, Z1, packed.data_ptr(), packed.data_ptr(), q_inf, nodouble, True)
+
+
+def window_sums(X, Y, Z):
+    """The MSM's window sums in one launch: (8, rows, B) int32 canonical
+    Jacobian buckets -> T as (8, rows) coordinates (`window_sums_plain`)."""
+    coords = (X, Y, Z)
+    shape = tuple(X.shape)
+    for t in coords:
+        if t.dtype != torch.int32:
+            raise TypeError(f"window_sums: expected int32 limbs, got {t.dtype}")
+        if t.dim() != 3 or t.shape[0] != 8 or tuple(t.shape) != shape:
+            raise ValueError(f"window_sums: expected three (8, rows, B) tensors, got {tuple(t.shape)}")
+    _check("window_sums", (), 0, X.device, [(t, torch.int32, shape) for t in coords])
+    if X.device.type == "cpu":
+        return window_sums_plain(X, Y, Z)
+    rows, n_buckets = shape[1], shape[2]
+    if not 1 <= n_buckets <= WINDOW_MAX_BUCKETS:
+        raise ValueError(f"window_sums: {n_buckets} buckets, the kernel takes 1 to {WINDOW_MAX_BUCKETS}")
+    out = tuple(torch.empty((8, rows), dtype=torch.int32, device=X.device) for _ in range(3))
+    if rows == 0:
+        return out
+    rc = kernels.lib().pht_g1_window_sums(
+        X.data_ptr(), Y.data_ptr(), Z.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), rows, n_buckets, kernels.stream_ptr(X.device),
+    )
+    kernels.check(rc, "window_sums")
+    LAUNCHES["window_sums"] += 1
+    return out

@@ -7,28 +7,30 @@ Counterpart of `paillier_halo2_tpu/msm/pippenger.py:1`:
   (`_use_lazy()`, `pippenger.py:67-73`): c-bit signed windows
   (`_signed_keys`, c from `_signed_window_bits`), 2^(c-1)+1 buckets per
   window, per-window sub-accumulator counts and bucket caps
-  (`_sub_schedule_signed`); the bucket loop adds +-P with K5 on
-  redundant-form accumulators (`ec/lazy_point.py`), the sub-accumulators
-  merge with K6, and one canonicalisation ends it (`:309-323`, `:347-369`,
-  `:394-397`);
+  (`_sub_schedule_signed`); the bucket loop adds +-P by K5's formula on
+  redundant-form accumulators, the whole loop in one launch
+  (`ec/lazy_point.bucket_loop_lazy`), the sub-accumulators merge with K6,
+  and one canonicalisation ends it (`:309-323`, `:347-369`, `:394-397`);
 - the unsigned route (`PAILLIER_TPU_LAZY=0` there, and its CPU route):
   window bits that divide 8, keys sliced straight out of the scalar limbs,
   K4 under `nodouble` in the bucket loop and K2 `nodouble` in the merge.
 
 Both then weight the buckets into window sums T_w = sum_b b * B_{w,b} with a
-Hillis-Steele suffix scan and reduction (K2, full), and combine the windows
-by Horner on the host. The route follows the device, as `_use_lazy()` does:
-signed on a CUDA tensor, unsigned on a CPU tensor; `signed=` asks for either
-on either.
+Hillis-Steele suffix scan and reduction (one launch of the window-sum kernel
+over K2's full add), and combine the windows by Horner on the host. The
+route follows the device, as `_use_lazy()` does: signed on a CUDA tensor,
+unsigned on a CPU tensor; `signed=` asks for either on either.
 
-Bucket accumulation sorts each window's keys and runs gather-rounds: round r
-gathers, for every (window, bucket, sub-accumulator) lane, the next point of
-that bucket's sorted run as a packed row and adds it (bases are distinct,
-hence `nodouble`). The round count is data-dependent (a `lax.while_loop` in
-the JAX package); here it costs one host readback per call. Lanes are ordered
-by the number of rounds they need, so round r runs on a prefix of the lanes —
-lanes whose runs have ended do no work. The sub-accumulators merge in a
-halving tree. Commitments are points, so the schedule changes no result.
+Bucket accumulation sorts each window's keys; each (window, bucket,
+sub-accumulator) lane then adds every nsub-th point of its bucket's sorted
+run, read as a packed row (bases are distinct, hence `nodouble`). The
+signed route does that in one kernel launch, each lane looping over its own
+run. The unsigned route runs gather-rounds (`lazy_point.bucket_rounds`), as
+the JAX package's `lax.while_loop` does: round r gathers every lane's next
+point and adds it, at the cost of one host readback per call for the round
+count. Lanes are ordered by the number of additions they need, so round r
+runs on a prefix of the lanes and a loop kernel's warp finishes together.
+The sub-accumulators merge in a halving tree. Commitments are points, so the schedule changes no result.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import torch
 from ..ec import bn254
 from ..ec import host as ech
 from ..ec import lazy_point as lzp
+from ..ec import point_kernels as pk
 from ..ff import field as f
 from ..ff.limbs16 import u64
 
@@ -56,9 +59,8 @@ def _keys_from_digits(scalar_limbs: torch.Tensor, window_bits: int) -> torch.Ten
     return stacked.reshape(scalar_limbs.shape[:-2] + (-1, scalar_limbs.shape[-1]))
 
 
-def _inf_points(n: int, device) -> bn254.JPoint:
-    one = bn254.SPEC.limbs("one_mont", device)[:, None].expand(N_LIMBS, n).contiguous()
-    return (one, one.clone(), torch.zeros((N_LIMBS, n), dtype=torch.int32, device=device))
+def _k4_step(X, Y, Z, rows, mask_off, _neg):
+    return bn254.padd_mixed_packed((X, Y, Z), rows, mask_off, nodouble=True)
 
 
 def default_schedule(device) -> tuple[int, int]:
@@ -198,38 +200,22 @@ def _bucket_accumulate(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...
     seg_l = seg_start.reshape(-1)[win_map * n_buckets + bkt_map]
     counts_l = counts.reshape(-1)[win_map * n_buckets + bkt_map]
 
-    # rounds each lane needs; order lanes by it so round r is a lane prefix
-    need = torch.clamp(counts_l - sub_map + nsub_map - 1, min=0) // nsub_map
+    # additions each lane makes; order lanes by it (round r is then a lane
+    # prefix, and a warp's lanes of the loop kernel finish together)
+    need = lzp._need(counts_l, sub_map, nsub_map)
     perm = torch.argsort(need, descending=True, stable=True)
-    hist = torch.bincount(need).cpu().tolist()  # the one readback per call
-    active = [sum(hist[r + 1 :]) for r in range(len(hist) - 1)]
-    seg_p, counts_p, sub_p, nsub_p, win_p = (
-        x[perm] for x in (seg_l, counts_l, sub_map, nsub_map, win_map)
-    )
-    if stats is not None:
-        for key, v in (("lanes", n_lanes), ("rounds", len(active)), ("lane_rounds", sum(active))):
+    if stats is not None:  # a host readback, for the counts only
+        for key, v in (("lanes", n_lanes), ("rounds", int(need.max())),
+                       ("lane_rounds", int(need.sum()))):
             stats[key] = stats.get(key, 0) + v
 
-    if lazy:
+    table = tuple(x[perm] for x in (seg_l, counts_l, sub_map, nsub_map, win_map))
+    if lazy:  # the whole loop in one launch, accumulators in lane order
         neg_sorted = torch.gather(neg, 1, order).reshape(-1)  # by sorted position
-        acc = lzp.inf_acc(n_lanes, device)
-    else:
-        acc = _inf_points(n_lanes, device)
-    for r, m in enumerate(active):
-        j = sub_p[:m] + r * nsub_p[:m]  # index within the bucket's sorted run
-        at = win_p[:m] * n + torch.clamp(seg_p[:m] + j, 0, n - 1)
-        rows = packed.index_select(0, order_flat[at])  # (m, 16)
-        mask_off = j >= counts_p[:m]
-        lanes = tuple(c[:, :m].contiguous() for c in acc)
-        if lazy:
-            out = lzp.padd_mixed_packed_lazy(*lanes, rows, mask_off, neg_sorted[at])
-        else:
-            out = bn254.padd_mixed_packed(lanes, rows, mask_off, nodouble=True)
-        for c, o in zip(acc, out):
-            c[:, :m] = o
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(n_lanes, dtype=perm.dtype, device=device)
-    acc = tuple(c.index_select(1, inv) for c in acc)
+        acc = lzp.bucket_loop_lazy(packed, order_flat.to(torch.int32), neg_sorted,
+                                   *(x.to(torch.int32) for x in table), perm.to(torch.int32), n)
+    else:  # gather-rounds of K4
+        acc = lzp.bucket_rounds(_k4_step, packed, order_flat, None, *table, perm, n)
 
     # Merge each block's S sub-accumulators in a halving tree (S is a power
     # of two), pad capped windows' dead buckets with infinity, then restore
@@ -266,25 +252,10 @@ def _bucket_accumulate(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...
 def _window_sums(buckets, n_buckets: int):
     """T_w = sum_b b * B_{w,b} via the suffix-sum identity: a Hillis-Steele
     suffix scan, then a Hillis-Steele reduction over the bucket axis
-    (`pippenger.py:401-432`). buckets: coordinates (8, W, B)."""
-    device = buckets[0].device
-    idx = torch.arange(n_buckets, device=device)
-    log_b = (n_buckets - 1).bit_length()
-
-    def masked(p, valid):  # invalid lanes become infinity (Z = 0)
-        return (p[0], p[1], torch.where(valid, p[2], 0))
-
-    s = buckets
-    for i in range(log_b):
-        step = 1 << i
-        shifted = tuple(torch.roll(c, -step, dims=2) for c in s)
-        s = bn254.padd(s, masked(shifted, idx < n_buckets - step))
-    t = masked(s, idx >= 1)  # drop S_0 (bucket weights start at 1)
-    for i in range(log_b):
-        step = 1 << i
-        shifted = tuple(torch.roll(c, -step, dims=2) for c in t)
-        t = bn254.padd(t, masked(shifted, idx < n_buckets - step))
-    return tuple(c[:, :, 0] for c in t)
+    (`pippenger.py:401-432`), in one launch for every row
+    (`point_kernels.window_sums`). buckets: coordinates (8, W, B)."""
+    assert buckets[0].shape[2] == n_buckets
+    return pk.window_sums(*(c.contiguous() for c in buckets))
 
 
 def msm_packed_multi(px, py, p_inf, scalars, window_bits: int | None = None,
@@ -296,9 +267,13 @@ def msm_packed_multi(px, py, p_inf, scalars, window_bits: int | None = None,
     the signed route a call holds at most MAX_LANES bucket lanes and takes
     the polys in groups. `signed` picks the route (default: signed on a CUDA
     tensor); `window_bits` defaults to `_signed_window_bits(N)` there and to
-    8 on the unsigned route; `s_cap` bounds the unsigned route's
+    8 on the unsigned route. On the signed route it must be at most 11, on
+    every device: the window-sum kernel holds a row's 2^(c-1) + 1 buckets in
+    a block's shared memory, at most `WINDOW_MAX_BUCKETS`, so a larger c
+    raises ValueError. `s_cap` bounds the unsigned route's
     sub-accumulators only. `stats`, if given, gains the calls' bucket lanes,
-    rounds and lane-rounds (the lanes that the bucket-loop launches add).
+    rounds (the most additions a lane makes) and lane-rounds (the additions
+    of all lanes).
 
     The signed route relies on scalars below r: the top windows' bucket caps
     and the carry out of the top window hold only below it, and an
@@ -314,11 +289,14 @@ def msm_packed_multi(px, py, p_inf, scalars, window_bits: int | None = None,
     s_base = d_base if s_base is None else s_base
     s_cap = d_cap if s_cap is None else s_cap
     if signed:
+        c = window_bits or _signed_window_bits(n)
+        n_buckets = (1 << (c - 1)) + 1
+        if n_buckets > pk.WINDOW_MAX_BUCKETS:
+            raise ValueError(f"signed window bits {c}: {n_buckets} buckets a window, the "
+                             f"window-sum kernel's shared memory holds {pk.WINDOW_MAX_BUCKETS}")
         if n and int(u64(scalars[:, N_LIMBS - 1]).max()) > ech.R >> 224:
             raise ValueError("the signed MSM route needs scalars below r")
-        c = window_bits or _signed_window_bits(n)
         n_windows = -(-256 // c)
-        n_buckets = (1 << (c - 1)) + 1
         subs, bcaps = _sub_schedule_signed(n_windows, c, s_base)
         group = max(1, MAX_LANES // _lanes_per_poly(subs, bcaps))
         if n_polys > group:

@@ -179,7 +179,7 @@ def test_lazy_point_kernels_match_plain(dev, point_operands):
     out = lp.padd_lazy(acc, (X2, Y2, Z2))
     torch.cuda.synchronize()
     assert all(torch.equal(o, r) for o, r in zip(out, lp.padd_lazy_plain(*acc, X2, Y2, Z2)))
-    assert lp.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert lp.LAUNCHES == {k: v + (k != "bucket_loop_lazy") for k, v in before.items()}
     no_neg = torch.zeros_like(neg)
     lazy = lp.canonicalize_jp(*lp.padd_mixed_packed_lazy(X1, Y1, Z1, packed, qinf, no_neg))
     k4 = pk.g1_madd_packed(X1, Y1, Z1, packed, qinf, nodouble=True)
@@ -192,8 +192,96 @@ def test_signed_msm_2e10_on_card_matches_fixture(dev):
     hi = rng.integers(0, 2**63, (4, 1 << 10), dtype=np.int64)
     scalars = [(int(x) | int(y) << 63 | int(z) << 126 | int(w) << 189) % ech.R
                for x, y, z, w in zip(*hi)]
-    before = dict(lp.LAUNCHES)
+    before = {**lp.LAUNCHES, **pk.LAUNCHES}
     got = msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, f.pack_ints(scalars, dev))  # signed: card
     ex, ey = json.loads((ROOT / "params_fixtures" / "bench_msm_expected_10.json").read_text())
     assert got == (int(ex, 16), int(ey, 16))
-    assert all(lp.LAUNCHES[k] > before[k] for k in before)
+    after = {**lp.LAUNCHES, **pk.LAUNCHES}
+    # one launch of each loop kernel, K6 merges, and no K5 or K2 step
+    assert after["bucket_loop_lazy"] == before["bucket_loop_lazy"] + 1
+    assert after["window_sums"] == before["window_sums"] + 1
+    assert after["padd_lazy"] > before["padd_lazy"]
+    assert after["padd_mixed_packed_lazy"] == before["padd_mixed_packed_lazy"]
+    assert after["g1_jadd"] == before["g1_jadd"]
+
+
+def _window_buckets(n_buckets: int, rows: int, seed: int, dev):
+    """(8, rows, n_buckets) Jacobian buckets with random Z from a pool of
+    points; row 0 holds infinities (both encodings), equal neighbours and a
+    P / -P pair of neighbours."""
+    prng = random.Random(seed)
+    pool = [ech.g1_mul(ech.G1, prng.randrange(1, ech.R)) for _ in range(64)]
+    pts = [prng.choice(pool) for _ in range(rows * n_buckets)]
+    pts[0], pts[2] = None, None
+    pts[6] = pts[5]
+    pts[4] = ech.g1_neg(pts[3])
+    cols = ([], [], [])
+    for i, p in enumerate(pts):
+        z = prng.randrange(1, Q) if p is not None else 0
+        vals = ((1, 1, 0) if i == 2 else (0, 0, 0)) if p is None else (
+            p[0] * z * z % Q, p[1] * z * z * z % Q, z)
+        for c, v in zip(cols, vals):
+            c.append(v * RM % Q)
+    return tuple(f.pack_ints(c, dev).reshape(8, rows, n_buckets) for c in cols)
+
+
+@pytest.mark.parametrize("n_buckets,rows", [(9, 5), (129, 3), (1025, 2)])
+def test_window_sums_kernel_matches_plain(dev, n_buckets, rows):
+    """B = 1,025 needs the shared-memory opt-in (196,800 B a block)."""
+    b = _window_buckets(n_buckets, rows, n_buckets, dev)
+    before = pk.LAUNCHES["window_sums"]
+    out = pk.window_sums(*b)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["window_sums"] == before + 1
+    assert all(torch.equal(o, r) for o, r in zip(out, pk.window_sums_plain(*b)))
+    too_many = tuple(torch.zeros((8, 1, pk.WINDOW_MAX_BUCKETS + 1), dtype=torch.int32, device=dev)
+                     for _ in range(3))
+    with pytest.raises(ValueError):
+        pk.window_sums(*too_many)
+
+
+def _loop_inputs(n: int, n_windows: int, n_buckets: int, subs: int, seed: int, dev):
+    """A bucket loop over n pool points: keys in [0, n_buckets) per window,
+    `subs` sub-accumulators per bucket, bucket 0's runs empty, lanes sorted
+    by need; `neg` random."""
+    prng = random.Random(seed)
+    pool = [ech.g1_mul(ech.G1, prng.randrange(1, ech.R)) for _ in range(64)]
+    px, py, _ = bn254.pack_affine([prng.choice(pool) for _ in range(n)], dev)
+    packed = bn254.pack_points_dense(px, py)
+    rng = np.random.default_rng(seed)
+    keys = torch.from_numpy(rng.integers(0, n_buckets, (n_windows, n)))
+    sk, order = torch.sort(keys, dim=1, stable=True)
+    targets = torch.arange(n_buckets).expand(n_windows, n_buckets).contiguous()
+    seg = torch.searchsorted(sk, targets)
+    cnt = torch.searchsorted(sk, targets, right=True) - seg
+    cnt[:, 0] = 0
+    win = torch.arange(n_windows).repeat_interleave(n_buckets * subs)
+    bkt = torch.arange(n_buckets).repeat_interleave(subs).repeat(n_windows)
+    sub = torch.arange(subs).repeat(n_windows * n_buckets)
+    nsub = torch.full_like(sub, subs)
+    seg_l, cnt_l = seg[win, bkt], cnt[win, bkt]
+    perm = torch.argsort(lp._need(cnt_l, sub, nsub), descending=True, stable=True)
+    table = tuple(x[perm].to(torch.int32).to(dev) for x in (seg_l, cnt_l, sub, nsub, win))
+    neg = torch.from_numpy(rng.random(n_windows * n) < 0.5).to(dev)
+    return (packed, order.reshape(-1).to(torch.int32).to(dev), neg, *table,
+            perm.to(torch.int32).to(dev), n)
+
+
+@pytest.mark.parametrize("n,n_windows,n_buckets,subs", [(1000, 3, 17, 4), (4099, 2, 33, 3)])
+def test_bucket_loop_kernel_matches_plain(dev, n, n_windows, n_buckets, subs):
+    """Lane counts that leave a ragged last block (204 and 198 lanes of
+    128-thread blocks), bucket 0's empty runs, and negated points."""
+    args = _loop_inputs(n, n_windows, n_buckets, subs, n, dev)
+    assert args[3].shape[0] % 128 != 0
+    before = dict(lp.LAUNCHES)
+    out = lp.bucket_loop_lazy(*args)
+    torch.cuda.synchronize()
+    assert lp.LAUNCHES["bucket_loop_lazy"] == before["bucket_loop_lazy"] + 1
+    assert all(torch.equal(o, r) for o, r in zip(out, lp.bucket_loop_lazy_plain(*args)))
+    stepwise = lp.bucket_rounds(lp.padd_mixed_packed_lazy, *args)  # K5 step launches
+    assert all(torch.equal(o, r) for o, r in zip(out, stepwise))
+    raw = torch.empty(args[0].numel() + 1, dtype=torch.int32, device=dev)
+    unaligned = raw[1:].view(args[0].shape)
+    unaligned.copy_(args[0])
+    with pytest.raises(ValueError, match="aligned"):
+        lp.bucket_loop_lazy(unaligned, *args[1:])

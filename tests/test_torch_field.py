@@ -115,6 +115,62 @@ def test_cuda_constants_match_field_specs():
         assert arrays == [limbs(spec.p), limbs(spec.r_mod_p)]
 
 
+M32 = 0xFFFFFFFF
+
+
+def _mac_row(t: list[int], a: list[int], b: int) -> None:
+    """field.cuh's `mac_row` word by word: one carry chain over the even
+    products, low word into t[j] then high word into t[j + 1], through t[8]
+    and t[9]; then one over the odd products into t[1..9]. A carry out of
+    t[9] would be lost."""
+    for first, tail in ((0, (8, 9)), (1, (9,))):
+        cf = 0
+        for j in range(first, 8, 2):  # mad.lo.cc / madc.hi.cc / madc.lo.cc ...
+            prod = a[j] * b
+            s = t[j] + (prod & M32) + cf
+            t[j], cf = s & M32, s >> 32
+            s = t[j + 1] + (prod >> 32) + cf
+            t[j + 1], cf = s & M32, s >> 32
+        for k in tail:  # addc.cc / addc
+            s = t[k] + cf
+            t[k], cf = s & M32, s >> 32
+        assert cf == 0, "carry out of the top word"
+
+
+@pytest.mark.parametrize("spec", [f.FR, f.FQ], ids=["Fr", "Fq"])
+def test_carry_chain_product_constants_and_schedule(spec):
+    """The constants `redc_product_cc` and the `_lazy_cc` ops use (p's limbs,
+    -p^-1 mod 2^32, 2p's limbs as `p2` forms them) and its row schedule, run
+    word by word on inputs in [0, 2p) with edges: each result is the CIOS
+    value (a*b + m*p) / R, below 2p, and no carry leaves the ten words."""
+    p, R = spec.p, 1 << 256
+    limbs = lambda v: [(v >> (32 * k)) & M32 for k in range(8)]  # noqa: E731
+    pl = limbs(p)
+    kinv = (-pow(p, -1, 1 << 32)) % (1 << 32)
+    src = (CSRC / "field.cuh").read_text()
+    body = re.search(r"struct %s \{(.*?)\n\};" % spec.name, src, re.S).group(1)
+    assert int(re.search(r"kInv = 0x([0-9a-f]+)u", body).group(1), 16) == kinv
+    assert "mac_row(t, p, t[0] * F::kInv)" in src
+    p2 = [((pl[i] << 1) | (pl[i - 1] >> 31 if i else 0)) & M32 for i in range(8)]
+    assert p2 == limbs(2 * p) and 4 * p < R
+    rng = np.random.default_rng(8)
+    words = rng.integers(0, 1 << 32, size=(2, 64, 8), dtype=np.uint64)
+    xs, ys = ([int.from_bytes(w.astype(np.uint32).tobytes(), "little") % (2 * p) for w in half]
+              for half in words)
+    edge = [0, 1, p - 1, p, 2 * p - 1]
+    pairs = [(u, v) for u in edge for v in edge] + list(zip(xs, ys))
+    for a, b in pairs:
+        al, bl, t = limbs(a), limbs(b), [0] * 10
+        for i in range(8):
+            _mac_row(t, al, bl[i])
+            _mac_row(t, pl, t[0] * kinv & M32)
+            assert t[0] == 0
+            t = t[1:] + [0]
+        got = sum(w << (32 * k) for k, w in enumerate(t))
+        m = (-a * b * pow(p, -1, R)) % R
+        assert got == (a * b + m * p) // R and got < 2 * p and t[8] == 0
+
+
 @pytest.mark.parametrize(
     "bad",
     ["dtype", "shape", "noncontiguous", "mismatch", "meta"],
