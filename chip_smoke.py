@@ -9,20 +9,20 @@ Phases:
 1. print the card's name and power limit, then build the CUDA kernels from
    `paillier_halo2_tpu_torch/csrc/` (one nvcc per source, all at once, sm_90a)
    and print the build time, each kernel's registers and spills (ptxas), and
-   for each schedule of the Fq product (`probes/fq_product.cu`) the SASS
-   instructions of one product (`cuobjdump --dump-sass`) and its rate in a
-   loop of chained products;
+   for the Fq product (`probes/fq_product.cu`) the SASS instructions of one
+   product (`cuobjdump --dump-sass`) and its rate in a loop of chained
+   products, checked against the host;
 2. hold every kernel against its plain PyTorch version on the card, exactly,
    at the main path's shapes (2^16 lanes for the Montgomery products, 2^14
    for the point adds) with edge lanes, and time both; the redundant-form
    kernels K5-K7, canonicalised, also equal K4, K2 and K1 on the same inputs;
 3. a 2^14-point MSM on the seed-b"" SRS equals
    `params_fixtures/bench_msm_expected_14.json` on both routes: signed
-   windows (the bucket-loop kernel, K6, the window-sum kernel, one launch of
-   each loop kernel and no K5 or K2 step) and unsigned windows (K4 and K2's
-   merge, whose launches are counted here); the two loop kernels are held
-   against their plain versions on that MSM's lane table and buckets, and
-   timed;
+   windows (the bucket-loop, merge and window-sum kernels, one launch of
+   each and no K5, K6 or K2 step) and unsigned windows (K4 and K2's merge,
+   whose launches are counted here); the three loop kernels are held
+   against their plain versions on that MSM's lane table, accumulators and
+   buckets, and the comb kernel on that SRS's scalars, and timed;
 4. the K=10 encryption proof, its commitments on the signed route, is
    byte-identical to the JAX package's fixture
    `tests/torch_fixtures/slice_enc_k10.json`, and the verifier accepts it and
@@ -30,18 +30,21 @@ Phases:
 5. the main path: `base_test().bench_builder` on the ENC=128/LIMB=64
    encryption circuit at k=14, lookup_bits=13 — SRS generated on the card
    into a fresh directory, keygen, witness, proof, verify — with every
-   kernel's launch count taken over this run alone; the two loop kernels are
-   held against their plain versions on the first MSM call's inputs (its
-   lane table and buckets) and timed there, and the kernels line takes their
+   kernel's launch count taken over this run alone (one comb launch, one
+   launch of each loop kernel per MSM call, no K3, K5, K6 or K2 step); the
+   comb kernel is held against its plain version on the SRS's scalars and
+   the three loop kernels on the first MSM call's inputs (its lane table,
+   accumulators and buckets), timed there, and the kernels line takes their
    entries from this comparison;
 6. the MSM 2^20 entry (bench.py's headline phase): the seed-b"" SRS generated
    at k = 20 on the card, bench.py's scalars, the signed route (c = 11) and
    the unsigned route (window 8), each equal to
    `params_fixtures/bench_msm_expected_20.json`, with first and warm times;
-   the signed route's window sums are held against their plain version and
-   its bucket loop against the rounds composed of K5 step launches on the
-   same lane table, one of those K5 launches and one K6 launch of the route
-   against their plain versions, and the loop kernels are timed;
+   the SRS's comb is held against the 32 K3 launches it replaces, the
+   signed route's window sums against their plain version, its bucket loop
+   against the rounds composed of K5 step launches on the same lane table
+   (one of those K5 launches against its plain version) and its merge
+   against the levels composed of K6 launches, and these kernels are timed;
 7. the lazy-mulmod entry (bench.py's `mulmod_lazy` phase): ten chained K7
    products over Fr at 2^20 lanes, equal after canonicalisation to the same
    chain through K1; K7's launches are counted here.
@@ -84,14 +87,22 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                     "paillier_halo2_tpu/ec/pallas_point.py:230"),
     "bucket_loop_lazy": ("paillier_halo2_tpu_torch/csrc/g1_add_lazy.cu",
                          "paillier_halo2_tpu/ec/lazy_point.py:172"),
+    "merge_lazy": ("paillier_halo2_tpu_torch/csrc/g1_add_lazy.cu",
+                   "paillier_halo2_tpu/ec/lazy_point.py:220"),
+    "fixed_base_comb": ("paillier_halo2_tpu_torch/csrc/g1_add.cu",
+                        "paillier_halo2_tpu/ec/pallas_point.py:265"),
 }
 # Where each kernel's launches are counted: the main path (phase 5) unless
-# named here. K5's one-step kernel is the JAX package's counterpart and the
-# loop kernel's reference; since the loop kernel it runs on no path.
+# named here. K3's, K5's and K6's one-step kernels are the JAX package's
+# counterparts and the references the comb, bucket-loop and merge kernels
+# are composed against; since those kernels they run on no path.
 LAUNCH_PATH = {"g1_jadd": "phase 3, unsigned 2^14 MSM (sub-accumulator merge)",
                "g1_madd_packed": "phase 3, unsigned 2^14 MSM",
                "mont_mul_lazy": "phase 7, lazy-mulmod chain",
-               "padd_mixed_packed_lazy": "none: off every path since the bucket-loop kernel"}
+               "padd_mixed_packed_lazy": "none: off every path since the bucket-loop kernel",
+               "g1_madd": "none: off every path since the comb kernel",
+               "padd_lazy": "none: off every path since the merge kernel"}
+OFF_PATH = [name for name, where in LAUNCH_PATH.items() if where.startswith("none")]
 # The least time the card could take for a timed call: the larger of its
 # bytes over the memory rate and its 32-bit integer multiply-adds over the
 # integer rate. Bytes: each input read once, each output written once.
@@ -168,6 +179,7 @@ PROFILED = {  # kernel -> substring of its CUDA symbol in the profiler's rows
     "K4 g1_madd_packed": "g1_madd_kernel<true, true>", "K5 padd_mixed_packed_lazy": "g1_madd_lazy_kernel",
     "K6 padd_lazy": "g1_jadd_lazy_kernel", "K7 mont_mul_lazy": "mont_mul_lazy_kernel",
     "K2 window sums": "g1_window_sums_kernel", "K5 bucket loop": "g1_bucket_lazy_kernel",
+    "K6 merge": "g1_merge_lazy_kernel", "K3 comb": "g1_fixed_base_comb_kernel",
 }
 
 
@@ -237,9 +249,9 @@ def ptxas_report(log_path: str) -> None:
 
 def product_probe() -> None:
     """Build probes/fq_product.cu, count the SASS instructions of one Fq
-    product in each schedule (all, IMAD*, IADD3*; the kernel's loads and
-    stores of its 24 words included) and run its timed loops; the probe
-    exits non-zero if the schedules' bits differ."""
+    product, redundant and canonical (all, IMAD*, IADD3*; the kernel's loads
+    and stores of its 24 words included), and run its timed loop; the probe
+    exits non-zero if its bits differ from the host's."""
     import re
 
     from paillier_halo2_tpu_torch.utils import kernels
@@ -591,6 +603,17 @@ def loop_work(name: str, args) -> tuple[int, int]:
         rows, n_buckets = args[0].shape[1:]
         return (IMAD_PER_PRODUCT * WORK["g1_jadd"][0] * rows * window_adds(n_buckets),
                 96 * rows * (n_buckets + 1))
+    if name == "merge_lazy":  # s - 1 tree adds a live bucket
+        acc, blocks, n_buckets = args
+        adds = sum(len(rows) * bc * (s - 1) for s, bc, rows in blocks)
+        n_rows = sum(len(rows) for _, _, rows in blocks)
+        return (IMAD_PER_PRODUCT * WORK["padd_lazy"][0] * adds,
+                96 * acc[0].shape[1] + 96 * n_rows * n_buckets)
+    if name == "fixed_base_comb":  # 32 windows a scalar; SRS scalars are below r,
+        table, table_inf, scalars = args  # so no lane takes the doubling branch
+        n = scalars.shape[1]
+        return (IMAD_PER_PRODUCT * WORK["g1_madd"][0] * 32 * n,
+                table.numel() * 4 + table_inf.numel() + 32 * n + 96 * n)
     packed, order, _, seg, count, sub, nsub = args[:7]
     lane_rounds = int(lp._need(count.long(), sub.long(), nsub.long()).sum())
     n_lanes = seg.shape[0]
@@ -601,55 +624,87 @@ def loop_work(name: str, args) -> tuple[int, int]:
 def describe(name: str, args) -> str:
     if name == "window_sums":
         return f"{args[0].shape[1]} rows x {args[0].shape[2]} buckets"
+    if name == "merge_lazy":
+        acc, blocks, n_buckets = args
+        adds = sum(len(rows) * bc * (s - 1) for s, bc, rows in blocks)
+        blk = ", ".join(f"s={s} x {len(rows)} rows x {bc}" for s, bc, rows in blocks)
+        return f"{acc[0].shape[1]} accumulators ({blk} buckets of {n_buckets}), {adds} tree adds"
+    if name == "fixed_base_comb":
+        return f"{args[2].shape[1]} scalars x 32 windows"
     from paillier_halo2_tpu_torch.ec import lazy_point as lp
 
     need = lp._need(args[4].long(), args[5].long(), args[6].long())
     return f"{args[3].shape[0]} lanes, {int(need.sum())} lane-rounds, at most {int(need.max())}"
 
 
-def check_loop_kernels(captured: dict, where: str, imad_per_s: float,
-                       reference: str = "plain") -> dict:
-    """The window-sum and bucket-loop kernels on captured MSM inputs, held
-    against a reference and timed: with "plain" each against its plain
-    version; with "k5" the window sums against theirs and the bucket loop
-    against the rounds composed of K5 step launches, one of those launches
-    against K5's plain version. Returns results entries."""
-    import torch
-
+def _kernel_tables():
+    """For each loop kernel: (wrapper, plain version, CUDA symbol, and its
+    composition of step launches: (module, step name, composed function,
+    step's plain version, the step's arguments as the plain version takes
+    them), or None where it has none)."""
     from paillier_halo2_tpu_torch.ec import lazy_point as lp
     from paillier_halo2_tpu_torch.ec import point_kernels as pk
 
-    kern = {"window_sums": pk.window_sums, "bucket_loop_lazy": lp.bucket_loop_lazy}
-    plain = {"window_sums": pk.window_sums_plain, "bucket_loop_lazy": lp.bucket_loop_lazy_plain}
-    symbol = {"window_sums": "g1_window_sums_kernel", "bucket_loop_lazy": "g1_bucket_lazy_kernel"}
+    return {
+        "window_sums": (pk.window_sums, pk.window_sums_plain, "g1_window_sums_kernel", None),
+        "bucket_loop_lazy": (
+            lp.bucket_loop_lazy, lp.bucket_loop_lazy_plain, "g1_bucket_lazy_kernel",
+            (lp, "padd_mixed_packed_lazy", "K5",
+             lambda *a: lp.bucket_rounds(lp.padd_mixed_packed_lazy, *a),
+             lp.padd_mixed_packed_lazy_plain, lambda a: a)),
+        "merge_lazy": (
+            lp.merge_lazy, lp.merge_lazy_plain, "g1_merge_lazy_kernel",
+            (lp, "padd_lazy", "K6",
+             lambda *a: lp.canonicalize_jp(*lp.merge_rounds(lp.padd_lazy, *a)),
+             lp.padd_lazy_plain, lambda a: (*a[0], *a[1]))),
+        "fixed_base_comb": (
+            pk.fixed_base_comb, pk.fixed_base_comb_plain, "g1_fixed_base_comb_kernel",
+            (pk, "g1_madd", "K3", lambda *a: pk.comb_rounds(pk.g1_madd, *a), pk.g1_madd_plain,
+             lambda a: a)),
+    }
+
+
+def check_loop_kernels(captured: dict, where: str, imad_per_s: float,
+                       reference: str = "plain") -> dict:
+    """The loop kernels (window sums, bucket loop, merge, comb) on captured
+    inputs, held against a reference and timed: with "plain" each against
+    its plain version; with "steps" each that has one against its
+    composition of step launches (the bucket loop against K5's rounds, the
+    merge against K6's levels, the comb against 32 K3 launches), one of
+    those launches against the step's plain version, and the window sums
+    against their plain version. Returns results entries."""
+    import torch
+
+    tables = _kernel_tables()
     entries = {}
     for name, args in captured.items():
+        kern, plain, symbol, steps = tables[name]
         entry = {}
-        k5 = CaptureCall(lp, "padd_mixed_packed_lazy", 1)
-        stepwise = name == "bucket_loop_lazy" and reference == "k5"
+        stepwise = steps is not None and reference == "steps"
         t0 = time.monotonic()
         if stepwise:
-            with k5:
-                ref = lp.bucket_rounds(lp.padd_mixed_packed_lazy, *args)
+            module, step_name, label, composed, step_plain, flat = steps
+            with CaptureCall(module, step_name, 1) as step:
+                ref = composed(*args)
         else:
-            ref = plain[name](*args)
+            ref = plain(*args)
         torch.cuda.synchronize()
         ref_s = time.monotonic() - t0
-        out = kern[name](*args)
+        out = kern(*args)
         torch.cuda.synchronize()
         entry["max_abs_err"] = max_abs_err(out, ref)
-        ref_name = "the rounds of K5 step launches" if stepwise else "its plain version"
+        ref_name = f"the composed {label} step launches" if stepwise else "its plain version"
         require(all(torch.equal(o, r) for o, r in zip(out, ref)),
                 f"{name} differs from {ref_name} ({where})")
         said = f"equal to {ref_name} (max_abs_err {entry['max_abs_err']}, {ref_s:.3f} s)"
         if stepwise:
-            require(k5.args is not None, "the K5 rounds ran no second step")
-            check_captured("padd_mixed_packed_lazy", lp.padd_mixed_packed_lazy,
-                           lp.padd_mixed_packed_lazy_plain, k5.args, k5.args)
+            require(step.args is not None, f"the composed {label} steps ran no second step")
+            check_captured(step_name, getattr(module, step_name), step_plain, step.args,
+                           flat(step.args))
         else:
             entry["plain_ms"] = ref_s * 1e3
-        entry["device_ms"] = device_ms(lambda: kern[name](*args), 5, symbol[name])
-        entry["ms"] = cuda_ms(lambda: kern[name](*args), 5)
+        entry["device_ms"] = device_ms(lambda: kern(*args), 5, symbol)
+        entry["ms"] = cuda_ms(lambda: kern(*args), 5)
         entry["ops"], entry["bytes"] = loop_work(name, args)
         bound_ms, bound_by = bound(name, entry, imad_per_s)
         log(f"  {name} on {where} ({describe(name, args)}): {said}; kernel {entry['ms']} ms "
@@ -658,12 +713,30 @@ def check_loop_kernels(captured: dict, where: str, imad_per_s: float,
     return entries
 
 
-def loop_captures():
-    """Capture the first call of each loop kernel's wrapper."""
-    from paillier_halo2_tpu_torch.ec import lazy_point as lp
-    from paillier_halo2_tpu_torch.ec import point_kernels as pk
+class LoopCaptures:
+    """While active, copies the arguments of the first call of each loop
+    kernel's wrapper: the comb, the bucket loop, the merge, the window sums."""
 
-    return CaptureCall(pk, "window_sums", 0), CaptureCall(lp, "bucket_loop_lazy", 0)
+    def __enter__(self):
+        from paillier_halo2_tpu_torch.ec import lazy_point as lp
+        from paillier_halo2_tpu_torch.ec import point_kernels as pk
+
+        self.calls = {"fixed_base_comb": CaptureCall(pk, "fixed_base_comb", 0),
+                      "bucket_loop_lazy": CaptureCall(lp, "bucket_loop_lazy", 0),
+                      "merge_lazy": CaptureCall(lp, "merge_lazy", 0),
+                      "window_sums": CaptureCall(pk, "window_sums", 0)}
+        for c in self.calls.values():
+            c.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for c in self.calls.values():
+            c.__exit__(*exc)
+
+    def captured(self, *names) -> dict:
+        for name in names:
+            require(self.calls[name].args is not None, f"{name} was not called")
+        return {name: self.calls[name].args for name in names}
 
 
 # -- phases 3-5 ---------------------------------------------------------------------
@@ -711,26 +784,24 @@ def msm_fixture(k: int):
 
 
 def check_msm(dev, results: dict, imad_per_s: float) -> dict:
-    """The 2^14 MSM on both routes, and the loop kernels on the signed
-    route's inputs; returns the launches of the unsigned route's run, the one
-    that runs K4 and K2's merge."""
+    """The 2^14 MSM on both routes, the loop kernels on the signed route's
+    inputs and the comb on its SRS's scalars; returns the launches of the
+    unsigned route's run, the one that runs K4 and K2's merge."""
     import torch
 
     from paillier_halo2_tpu_torch.msm.pippenger import msm_packed
     from paillier_halo2_tpu_torch.plonk.srs import generate_srs
 
     k = 14
-    srs = generate_srs(k, b"", dev)
-    sd = bench_scalars(k, dev)
+    with LoopCaptures() as cap:
+        srs = generate_srs(k, b"", dev)
+        sd = bench_scalars(k, dev)
+        msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, sd, signed=True)
+    torch.cuda.synchronize()
+    captured = cap.captured("fixed_base_comb", "bucket_loop_lazy", "merge_lazy", "window_sums")
     want = msm_fixture(k)
     counts = {}
-    ws, bl = loop_captures()
     for signed in (True, False):
-        with ws, bl:
-            msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, sd, signed=signed)
-        torch.cuda.synchronize()
-        if signed:
-            captured = {"window_sums": ws.args, "bucket_loop_lazy": bl.args}
         zero_counts()
         t0 = time.monotonic()
         got = msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, sd, signed=signed)
@@ -740,15 +811,15 @@ def check_msm(dev, results: dict, imad_per_s: float) -> dict:
         require(got == want, f"2^14 MSM ({route}) differs from its fixture")
         log(f"  MSM 2^14 {route} equals params_fixtures/bench_msm_expected_14.json; warm {dt:.4f} s")
     log(f"  launches, signed: {counts[True]}; unsigned: {counts[False]}")
-    require(counts[True]["bucket_loop_lazy"] == 1 and counts[True]["window_sums"] == 1,
+    require(all(counts[True][name] == 1 for name in ("bucket_loop_lazy", "merge_lazy", "window_sums")),
             "the signed route did not launch each loop kernel once")
-    require(counts[True]["padd_lazy"] > 0, "the signed route did not launch K6")
-    require(counts[True]["padd_mixed_packed_lazy"] == 0 and counts[True]["g1_jadd"] == 0,
-            "the signed route launched a K5 or K2 step")
+    require(all(counts[True][name] == 0 for name in ("padd_mixed_packed_lazy", "padd_lazy", "g1_jadd")),
+            "the signed route launched a K5, K6 or K2 step")
     require(counts[False]["g1_madd_packed"] > 0 and counts[False]["g1_jadd"] > 0
             and counts[False]["window_sums"] == 1,
             "the unsigned route did not launch K4, K2's merge and the window sums")
-    results.update(check_loop_kernels(captured, "the 2^14 MSM's signed call", imad_per_s))
+    results.update(check_loop_kernels(captured, "the 2^14 MSM's signed call and its SRS",
+                                      imad_per_s))
     return counts[False]
 
 
@@ -865,18 +936,18 @@ def check_captured(name: str, kern, plain, args, flat_args) -> None:
 
 
 def run_msm_entry(dev, imad_per_s: float, k: int = 20) -> None:
-    """bench.py's headline entry: MSM at 2^k points on both routes; the
-    signed route's loop kernels and its K6 merge held against references on
+    """bench.py's headline entry: MSM at 2^k points on both routes; the SRS's
+    comb and the signed route's loop kernels held against references on
     their real inputs."""
     import torch
 
-    from paillier_halo2_tpu_torch.ec import lazy_point as lp
     from paillier_halo2_tpu_torch.msm.pippenger import msm_packed
     from paillier_halo2_tpu_torch.plonk.srs import generate_srs
 
     n = 1 << k
     t0 = time.monotonic()
-    srs = generate_srs(k, b"", dev)
+    with LoopCaptures() as srs_cap:
+        srs = generate_srs(k, b"", dev)
     torch.cuda.synchronize()
     log(f"  SRS k={k} generated on the card in {time.monotonic() - t0:.3f} s")
     sd = bench_scalars(k, dev)
@@ -886,8 +957,7 @@ def run_msm_entry(dev, imad_per_s: float, k: int = 20) -> None:
         args = (srs.g1_px, srs.g1_py, srs.g1_inf, sd, window_bits, signed)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        ws, bl = loop_captures()
-        with ws, bl, CaptureCall(lp, "padd_lazy", 0) as k6:
+        with LoopCaptures() as cap:
             first = msm_packed(*args)
         torch.cuda.synchronize()
         t_first = time.monotonic() - t0
@@ -901,8 +971,8 @@ def run_msm_entry(dev, imad_per_s: float, k: int = 20) -> None:
         require(first == want and warm == want,
                 f"2^{k} MSM ({route}) differs from params_fixtures/bench_msm_expected_{k}.json")
         shown = {name: counts[name] for name in
-                 ("bucket_loop_lazy", "padd_mixed_packed_lazy", "padd_lazy", "g1_madd_packed",
-                  "g1_jadd", "window_sums")}
+                 ("bucket_loop_lazy", "merge_lazy", "padd_mixed_packed_lazy", "padd_lazy",
+                  "g1_madd_packed", "g1_jadd", "window_sums")}
         log(f"  MSM 2^{k} {route} (window {window_bits or 'signed default'}): equals the fixture; first "
             f"{t_first:.4f} s, warm {t_warm:.4f} s = {n / t_warm:.1f} points/s; "
             f"{stats['lanes']} bucket lanes, {stats['rounds']} rounds, {stats['lane_rounds']} "
@@ -910,12 +980,13 @@ def run_msm_entry(dev, imad_per_s: float, k: int = 20) -> None:
         log(f"    profile of a third call: {profile_call(lambda: msm_packed(*args), t_warm)}")
         require(counts["window_sums"] == 1, f"the {route} route did not sum its windows in one launch")
         if signed:
-            require(counts["bucket_loop_lazy"] == 1 and counts["padd_mixed_packed_lazy"] == 0
-                    and counts["g1_jadd"] == 0, "the signed route ran a K5 or K2 step")
-            require(k6.args is not None, "the signed route ran no K6")
-            check_loop_kernels({"window_sums": ws.args, "bucket_loop_lazy": bl.args},
-                               f"the 2^{k} MSM's signed call", imad_per_s, "k5")
-            check_captured("padd_lazy", lp.padd_lazy, lp.padd_lazy_plain, k6.args, (*k6.args[0], *k6.args[1]))
+            require(counts["bucket_loop_lazy"] == 1 and counts["merge_lazy"] == 1,
+                    "the signed route did not run its bucket loop and merge in one launch each")
+            require(all(counts[name] == 0 for name in ("padd_mixed_packed_lazy", "padd_lazy", "g1_jadd")),
+                    "the signed route ran a K5, K6 or K2 step")
+            check_loop_kernels({**srs_cap.captured("fixed_base_comb"),
+                                **cap.captured("window_sums", "bucket_loop_lazy", "merge_lazy")},
+                               f"the 2^{k} MSM's signed call and its SRS", imad_per_s, "steps")
 
 
 def run_mulmod_lazy(dev, log_n: int = 20) -> dict:
@@ -1032,8 +1103,7 @@ def main() -> int:
         torch.cuda.synchronize()
         zero_counts()
         torch.cuda.reset_peak_memory_stats(dev)
-        ws, bl = loop_captures()
-        with ws, bl:
+        with LoopCaptures() as cap:
             stats = run_main_path(dev, params_dir)
         main_counts = read_counts()
         for line in stats.pretty().splitlines():
@@ -1041,15 +1111,19 @@ def main() -> int:
         log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         log(f"  launches during the main path: {main_counts}")
         require(stats.verified, "main-path proof did not verify")
-        require(main_counts["bucket_loop_lazy"] == main_counts["window_sums"] > 0,
+        require(main_counts["fixed_base_comb"] == 1, "the main path's SRS did not run one comb launch")
+        require(main_counts["bucket_loop_lazy"] == main_counts["merge_lazy"]
+                == main_counts["window_sums"] > 0,
                 "the main path's MSM calls did not launch each loop kernel once")
-        require(main_counts["padd_mixed_packed_lazy"] == 0 and main_counts["g1_jadd"] == 0,
-                "the main path launched a K5 or K2 step")
+        require(all(main_counts[name] == 0 for name in
+                    ("g1_madd", "padd_mixed_packed_lazy", "padd_lazy", "g1_jadd")),
+                "the main path launched a K3, K5, K6 or K2 step")
         for name in ("mont_mul", "g1_madd", "padd_lazy", "window_sums", "bucket_loop_lazy",
-                     "padd_mixed_packed_lazy"):
+                     "padd_mixed_packed_lazy", "merge_lazy", "fixed_base_comb"):
             launches[name] = main_counts[name]
-        results.update(check_loop_kernels({"window_sums": ws.args, "bucket_loop_lazy": bl.args},
-                                          "the main path's first MSM call", imad_per_s))
+        results.update(check_loop_kernels(
+            cap.captured("fixed_base_comb", "bucket_loop_lazy", "merge_lazy", "window_sums"),
+            "the main path's SRS and first MSM call", imad_per_s))
         check_srs_cache(dev, params_dir)
     if 6 in phases:
         log("[6] MSM 2^20 entry, signed and unsigned routes")
@@ -1059,7 +1133,7 @@ def main() -> int:
         launches["mont_mul_lazy"] = run_mulmod_lazy(dev)["mont_mul_lazy"]
     if {3, 5, 7} <= phases:
         for name in KERNELS:
-            if name != "padd_mixed_packed_lazy":
+            if name not in OFF_PATH:
                 require(launches[name] > 0, f"kernel {name} was not launched on its path")
 
     if {2, 3} <= phases:

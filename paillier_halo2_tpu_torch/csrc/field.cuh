@@ -7,12 +7,14 @@
 //
 // Montgomery form uses R = 2^256 for both Fr and Fq, as the JAX package does
 // (paillier_halo2_tpu/ff/field_jax.py:39-77), so Montgomery values agree
-// across packages. The multiply is word-by-word CIOS with 32-bit words and
-// 64-bit accumulators; for inputs below R it computes (a*b + m*p) / R with
-// m = -a*b*p^-1 mod R (the same value as whole-R REDC), then subtracts p once
-// if the result is >= p. Canonical inputs in [0, p) give canonical outputs.
-// tests/test_torch_field.py checks the constants below against the Python
-// field specification.
+// across packages. There is one Montgomery product, `redc_product_cc`:
+// word-by-word CIOS with 32-bit words on PTX carry chains (below). For
+// inputs below R it computes (a*b + m*p) / R with m = -a*b*p^-1 mod R (the
+// same value as whole-R REDC); `mul_cc` then subtracts p once if the result
+// is >= p, so canonical inputs in [0, p) give canonical outputs, and
+// `mul_lazy_cc` keeps the redundant form below. tests/test_torch_field.py
+// checks the constants below against the Python field specification and
+// runs the product's row schedule word by word.
 #pragma once
 
 #include <cstdint>
@@ -91,106 +93,6 @@ __device__ __forceinline__ void set_zero(uint32_t r[kLimbs]) {
   for (int k = 0; k < kLimbs; k++) r[k] = 0u;
 }
 
-// r = (a + b) mod p for a, b in [0, p). r may alias a or b.
-template <class F>
-__device__ __forceinline__ void add(uint32_t r[kLimbs], const uint32_t a[kLimbs],
-                                    const uint32_t b[kLimbs]) {
-  uint32_t s[kLimbs], d[kLimbs];
-  uint64_t carry = 0;
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) {
-    uint64_t t = (uint64_t)a[k] + b[k] + carry;
-    s[k] = (uint32_t)t;
-    carry = t >> 32;
-  }
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) {
-    uint64_t t = (uint64_t)s[k] - F::p(k) - borrow;
-    d[k] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  bool use_d = carry != 0 || borrow == 0;  // a + b >= p
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) r[k] = use_d ? d[k] : s[k];
-}
-
-// r = (a - b) mod p for a, b in [0, p). r may alias a or b.
-template <class F>
-__device__ __forceinline__ void sub(uint32_t r[kLimbs], const uint32_t a[kLimbs],
-                                    const uint32_t b[kLimbs]) {
-  uint32_t d[kLimbs];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) {
-    uint64_t t = (uint64_t)a[k] - b[k] - borrow;
-    d[k] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  uint32_t mask = 0u - borrow;  // add p back when a < b
-  uint64_t carry = 0;
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) {
-    uint64_t t = (uint64_t)d[k] + (F::p(k) & mask) + carry;
-    r[k] = (uint32_t)t;
-    carry = t >> 32;
-  }
-}
-
-// t[0..8] = (a*b + m*p) / R with m = -a*b*p^-1 mod R (CIOS), which is below
-// R + p for a, b < R. 64 32x32->64 multiply pairs for a*b and 64 for m*p.
-template <class F>
-__device__ __forceinline__ void redc_product(uint32_t t[kLimbs + 2], const uint32_t a[kLimbs],
-                                             const uint32_t b[kLimbs]) {
-#pragma unroll
-  for (int k = 0; k < kLimbs + 2; k++) t[k] = 0u;
-#pragma unroll
-  for (int i = 0; i < kLimbs; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < kLimbs; j++) {
-      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[kLimbs] + c;
-    t[kLimbs] = (uint32_t)s;
-    t[kLimbs + 1] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * F::kInv;
-    s = (uint64_t)m * F::p(0) + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < kLimbs; j++) {
-      s = (uint64_t)m * F::p(j) + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[kLimbs] + c;
-    t[kLimbs - 1] = (uint32_t)s;
-    t[kLimbs] = t[kLimbs + 1] + (uint32_t)(s >> 32);
-  }
-}
-
-// r = a * b * 2^-256 mod p (CIOS), canonical for a, b < R: the product
-// above, then one conditional subtract. r may alias a or b.
-template <class F>
-__device__ __forceinline__ void mul(uint32_t r[kLimbs], const uint32_t a[kLimbs],
-                                    const uint32_t b[kLimbs]) {
-  uint32_t t[kLimbs + 2];
-  redc_product<F>(t, a, b);
-  uint32_t d[kLimbs];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) {
-    uint64_t x = (uint64_t)t[k] - F::p(k) - borrow;
-    d[k] = (uint32_t)x;
-    borrow = (uint32_t)(x >> 63);
-  }
-  bool ge = t[kLimbs] != 0 || borrow == 0;
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) r[k] = ge ? d[k] : t[k];
-}
-
 // ---------------------------------------------------------------------------
 // The redundant form: a field element held as any integer in [0, 2p).
 //
@@ -204,13 +106,13 @@ __device__ __forceinline__ void mul(uint32_t r[kLimbs], const uint32_t a[kLimbs]
 // Invariant: every operand and every result is an integer in [0, 2p).
 // Proof, with p / R < 0.1891 for both Fr and Fq (top limb 0x30644e72), so
 // 4p < R = 2^256:
-//  - mul_lazy: for a, b < 2p the CIOS result is t = (a*b + m*p) / R with
+//  - mul_lazy_cc: for a, b < 2p the product is t = (a*b + m*p) / R with
 //    m < R, so t < (4p^2 + R*p) / R = p * (1 + 4p/R) < 1.757 p < 2p. The
 //    value is a*b*R^-1 mod p up to one multiple of p, and t < R means the
 //    ninth word t[8] is 0.
-//  - add_lazy: a + b < 4p < R never carries out of 256 bits; subtracting 2p
+//  - add_lazy_cc: a + b < 4p < R never carries out of 256 bits; subtracting 2p
 //    once when a + b >= 2p lands in [0, 2p).
-//  - sub_lazy: a - b lies in (-2p, 2p); adding 2p when it borrows lands in
+//  - sub_lazy_cc: a - b lies in (-2p, 2p); adding 2p when it borrows lands in
 //    (0, 2p). This is a - b + 2p followed by one conditional subtraction of
 //    2p, written as the branch that is taken.
 // Exact zero stays exact zero: 0 * b gives t = 0 (every m is 0), 0 + 0 = 0
@@ -226,87 +128,28 @@ __device__ __forceinline__ uint32_t p2(int i) {
   return (F::p(i) << 1) | (i ? F::p(i - 1) >> 31 : 0u);
 }
 
-// r = a * b * 2^-256 + k*p, k in {0, 1}: in [0, 2p) for a, b in [0, 2p).
-// r may alias a or b.
-template <class F>
-__device__ __forceinline__ void mul_lazy(uint32_t r[kLimbs], const uint32_t a[kLimbs],
-                                         const uint32_t b[kLimbs]) {
-  uint32_t t[kLimbs + 2];
-  redc_product<F>(t, a, b);
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) r[k] = t[k];
-}
-
-// r = a + b, minus 2p if that is >= 2p. r may alias a or b.
-template <class F>
-__device__ __forceinline__ void add_lazy(uint32_t r[kLimbs], const uint32_t a[kLimbs],
-                                         const uint32_t b[kLimbs]) {
-  uint32_t s[kLimbs], d[kLimbs];
-  uint32_t carry = 0;
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) {
-    uint64_t t = (uint64_t)a[k] + b[k] + carry;
-    s[k] = (uint32_t)t;
-    carry = (uint32_t)(t >> 32);
-  }
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) {
-    uint64_t t = (uint64_t)s[k] - p2<F>(k) - borrow;
-    d[k] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) r[k] = borrow ? s[k] : d[k];
-}
-
-// r = a - b, plus 2p if that borrows. r may alias a or b.
-template <class F>
-__device__ __forceinline__ void sub_lazy(uint32_t r[kLimbs], const uint32_t a[kLimbs],
-                                         const uint32_t b[kLimbs]) {
-  uint32_t d[kLimbs];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) {
-    uint64_t t = (uint64_t)a[k] - b[k] - borrow;
-    d[k] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  uint32_t mask = 0u - borrow;
-  uint64_t carry = 0;
-#pragma unroll
-  for (int k = 0; k < kLimbs; k++) {
-    uint64_t t = (uint64_t)d[k] + (p2<F>(k) & mask) + carry;
-    r[k] = (uint32_t)t;
-    carry = t >> 32;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The same operations on PTX carry chains (the `_cc` forms).
+// The product on PTX carry chains.
 //
-// `redc_product` above is CIOS in C++ 64-bit arithmetic: each limb step
-// widens to 64 bits and splits the carry back out, which costs separate
-// IADD3 instructions beside the IMADs. Here a row a*b[i] is added to t as two
-// carry chains in even/odd form: one over the products a[0], a[2], a[4],
-// a[6], one over a[1], a[3], a[5], a[7], each product's low word
-// (`mad.lo.cc`/`madc.lo.cc`) followed at once by its high word
-// (`madc.hi.cc`) in the next word up. The even products' words do not
+// A row a*b[i] is added to t as two carry chains in even/odd form: one over
+// the products a[0], a[2], a[4], a[6], one over a[1], a[3], a[5], a[7], each
+// product's low word (`mad.lo.cc`/`madc.lo.cc`) followed at once by its high
+// word (`madc.hi.cc`) in the next word up. The even products' words do not
 // overlap, nor the odd ones', so each chain is one pass, and ptxas fuses each
-// low/high pair of one product into a wide multiply-add with carry, where a
+// low/high pair of one product into a wide multiply-add with carry. C++
+// 64-bit CIOS (each limb step widened to 64 bits and its carry split back
+// out) gives the same bits with separate IADD3s beside the IMADs, and a
 // chain over all low words and then all high words costs a multiply and an
-// add per word. `probes/fq_product.cu` (run by `chip_smoke.py` phase 1)
-// counts and times the schedules; PERF.md has the numbers. A chain must stay
-// inside one asm statement: the condition code does not survive between
-// statements.
+// add per word; both were measured and dropped (PERF.md).
+// `probes/fq_product.cu` (run by `chip_smoke.py` phase 1) counts and times
+// the product. A chain must stay inside one asm statement: the condition
+// code does not survive between statements.
 //
-// It computes the same integer as `redc_product`: row i adds a*b[i], then
-// m_i*p with m_i = t[0] * (-p^-1) mod 2^32, then drops the zero low word.
-// Each row's t is the same integer in both schedules, so every m_i and the
-// result t = (a*b + m*p) / R are equal bit for bit, and the [0, 2p)
-// invariant above holds for `mul_lazy_cc` as it does for `mul_lazy`. Bounds:
-// between rows t < R + p < 2^257; inside a row t + a*b[i] + m*p < 2^290, so
-// ten words hold it and the top carry never leaves t[9].
+// Row i adds a*b[i], then m_i*p with m_i = t[0] * (-p^-1) mod 2^32, then
+// drops the zero low word, so the result is CIOS's t = (a*b + m*p) / R.
+// Bounds: between rows t < R + p < 2^257; inside a row
+// t + a*b[i] + m*p < 2^290, so ten words hold it and the top carry never
+// leaves t[9].
 // ---------------------------------------------------------------------------
 
 // t[0..9] += a[0..7] * b: the low word of a[j] * b at t[j], the high word at
@@ -338,7 +181,7 @@ __device__ __forceinline__ void mac_row(uint32_t t[kLimbs + 2], const uint32_t a
         "r"(a[7]), "r"(b));
 }
 
-// t[0..8] = (a*b + m*p) / R, the value `redc_product` gives (t[8] <= 1).
+// t[0..8] = (a*b + m*p) / R (t[8] <= 1 for a, b < R; 0 for a, b < 2p).
 template <class F>
 __device__ __forceinline__ void redc_product_cc(uint32_t t[kLimbs + 2], const uint32_t a[kLimbs],
                                                 const uint32_t b[kLimbs]) {
@@ -409,7 +252,7 @@ __device__ __forceinline__ void p2_limbs(uint32_t p[kLimbs]) {
   for (int k = 0; k < kLimbs; k++) p[k] = p2<F>(k);
 }
 
-// As `mul`: canonical for a, b < R. r may alias a or b.
+// r = a * b * 2^-256 mod p, canonical for a, b < R. r may alias a or b.
 template <class F>
 __device__ __forceinline__ void mul_cc(uint32_t r[kLimbs], const uint32_t a[kLimbs],
                                        const uint32_t b[kLimbs]) {
@@ -422,7 +265,8 @@ __device__ __forceinline__ void mul_cc(uint32_t r[kLimbs], const uint32_t a[kLim
   for (int k = 0; k < kLimbs; k++) r[k] = ge ? d[k] : t[k];
 }
 
-// As `mul_lazy`: in [0, 2p) for a, b in [0, 2p).
+// r = a * b * 2^-256 + k*p, k in {0, 1}: in [0, 2p) for a, b in [0, 2p).
+// r may alias a or b.
 template <class F>
 __device__ __forceinline__ void mul_lazy_cc(uint32_t r[kLimbs], const uint32_t a[kLimbs],
                                             const uint32_t b[kLimbs]) {
@@ -432,7 +276,8 @@ __device__ __forceinline__ void mul_lazy_cc(uint32_t r[kLimbs], const uint32_t a
   for (int k = 0; k < kLimbs; k++) r[k] = t[k];
 }
 
-// As `add`, `sub`, `add_lazy`, `sub_lazy`, on add.cc/sub.cc chains.
+// r = (a + b) mod p and r = (a - b) mod p for a, b in [0, p); r may alias
+// a or b.
 template <class F>
 __device__ __forceinline__ void add_cc(uint32_t r[kLimbs], const uint32_t a[kLimbs],
                                        const uint32_t b[kLimbs]) {
@@ -456,6 +301,8 @@ __device__ __forceinline__ void sub_cc(uint32_t r[kLimbs], const uint32_t a[kLim
   add_cc8(r, d, p);
 }
 
+// r = a + b, minus 2p if that is >= 2p; r = a - b, plus 2p if that borrows:
+// the redundant form's sum and difference. r may alias a or b.
 template <class F>
 __device__ __forceinline__ void add_lazy_cc(uint32_t r[kLimbs], const uint32_t a[kLimbs],
                                             const uint32_t b[kLimbs]) {
@@ -478,32 +325,16 @@ __device__ __forceinline__ void sub_lazy_cc(uint32_t r[kLimbs], const uint32_t a
   add_cc8(r, d, p);
 }
 
-// The two sets of field operations, so one point formula can be built on
-// either: `Cios` (the C++ product above) or `Chain` (the carry chains).
+// [0, 2p) -> [0, p): the redundant form's exit, as `canonicalize` in
+// ff/lazy_mont.py; a Z that is p becomes the exact 0 of infinity. r may
+// alias a.
 template <class F>
-struct Cios {
-  __device__ __forceinline__ static void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    pht::mul<F>(r, a, b);
-  }
-  __device__ __forceinline__ static void add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    pht::add<F>(r, a, b);
-  }
-  __device__ __forceinline__ static void sub(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    pht::sub<F>(r, a, b);
-  }
-};
-
-template <class F>
-struct Chain {
-  __device__ __forceinline__ static void mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    mul_cc<F>(r, a, b);
-  }
-  __device__ __forceinline__ static void add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    add_cc<F>(r, a, b);
-  }
-  __device__ __forceinline__ static void sub(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-    sub_cc<F>(r, a, b);
-  }
-};
+__device__ __forceinline__ void canonicalize(uint32_t r[kLimbs], const uint32_t a[kLimbs]) {
+  uint32_t d[kLimbs], p[kLimbs];
+  p_limbs<F>(p);
+  const uint32_t borrow = sub_cc8(d, a, p);
+#pragma unroll
+  for (int k = 0; k < kLimbs; k++) r[k] = borrow ? a[k] : d[k];
+}
 
 }  // namespace pht

@@ -8,6 +8,8 @@
 //   g1_madd<nodouble, true>    -> K4 `padd_mixed_packed_pallas` (:309, `_packed_kernel` :292-305)
 //   g1_window_sums             -> K2's use in `_window_sums`
 //                                 (paillier_halo2_tpu/msm/pippenger.py:403-432)
+//   g1_fixed_base_comb         -> K3's use in the SRS comb `_fixed_base_msm_kernel`
+//                                 (paillier_halo2_tpu/plonk/srs.py:90-112)
 // The formulas and every edge-case select (P+inf, inf+Q, P+P through the
 // doubling branch, P+(-P) to infinity) follow pallas_point.py:93-133 and
 // :163-201 in the same order, so outputs are bit-identical to the JAX
@@ -16,11 +18,11 @@
 // the caller's distinct-points contract then degrades to Z3 == 0 (h == 0
 // makes Z3 = Z1*Z2*h vanish), never to a wrong finite point.
 //
-// K2 (`jadd`) runs on the carry-chain Fq product (`pht::Chain`, field.cuh)
-// and takes the doubling as a branch, on the lanes with h == r == 0 only,
-// where the JAX formula computes it on every lane and selects: 16 products a
-// lane instead of 23. K3 and K4 keep the C++ CIOS product (`pht::Cios`) and
-// the select.
+// All of them run on field.cuh's carry-chain Fq product and take the
+// doubling as a branch, on the lanes with h == r == 0 only, where the JAX
+// formulas compute it on every lane and select: 16 products a lane instead
+// of 23 for K2, 11 instead of 18 for K3 and K4. The branch writes what the
+// select would keep, so the bits are the JAX package's.
 //
 // One thread per lane for the batched adds. Bound: registers. A Jacobian
 // point is 24 limbs and the full add keeps about a dozen 8-limb temporaries
@@ -56,67 +58,76 @@ using F = pht::Fq;
 constexpr int kThreads = 128;
 constexpr int L = pht::kLimbs;
 
+// The canonical Fq operations (field.cuh): inputs and results in [0, p).
+__device__ __forceinline__ void mul(uint32_t r[L], const uint32_t a[L], const uint32_t b[L]) {
+  pht::mul_cc<F>(r, a, b);
+}
+__device__ __forceinline__ void add(uint32_t r[L], const uint32_t a[L], const uint32_t b[L]) {
+  pht::add_cc<F>(r, a, b);
+}
+__device__ __forceinline__ void sub(uint32_t r[L], const uint32_t a[L], const uint32_t b[L]) {
+  pht::sub_cc<F>(r, a, b);
+}
+
 // dbl-2009-l (a = 0) of (X1, Y1, Z1), as pallas_point.py:98-112.
-template <class Op>
 __device__ __forceinline__ void dbl(uint32_t Xd[L], uint32_t Yd[L], uint32_t Zd[L],
                                     const uint32_t X1[L], const uint32_t Y1[L],
                                     const uint32_t Z1[L]) {
   uint32_t A[L], B[L], C[L], t[L], D[L], E[L], Fv[L], C8[L], YZ[L];
-  Op::mul(A, X1, X1);
-  Op::mul(B, Y1, Y1);
-  Op::mul(C, B, B);
-  Op::add(t, X1, B);
-  Op::mul(t, t, t);
-  Op::sub(D, t, A);
-  Op::sub(D, D, C);
-  Op::add(D, D, D);
-  Op::add(E, A, A);
-  Op::add(E, E, A);
-  Op::mul(Fv, E, E);
-  Op::add(t, D, D);
-  Op::sub(Xd, Fv, t);
-  Op::add(C8, C, C);
-  Op::add(C8, C8, C8);
-  Op::add(C8, C8, C8);
-  Op::sub(t, D, Xd);
-  Op::mul(t, E, t);
-  Op::sub(Yd, t, C8);
-  Op::mul(YZ, Y1, Z1);
-  Op::add(Zd, YZ, YZ);
+  mul(A, X1, X1);
+  mul(B, Y1, Y1);
+  mul(C, B, B);
+  add(t, X1, B);
+  mul(t, t, t);
+  sub(D, t, A);
+  sub(D, D, C);
+  add(D, D, D);
+  add(E, A, A);
+  add(E, E, A);
+  mul(Fv, E, E);
+  add(t, D, D);
+  sub(Xd, Fv, t);
+  add(C8, C, C);
+  add(C8, C8, C8);
+  add(C8, C8, C8);
+  sub(t, D, Xd);
+  mul(t, E, t);
+  sub(Yd, t, C8);
+  mul(YZ, Y1, Z1);
+  add(Zd, YZ, YZ);
 }
 
-// Jacobian + Jacobian, as `_jacobian_add_full`, on the carry-chain product.
+// Jacobian + Jacobian, as `_jacobian_add_full`.
 template <bool kNoDouble>
 __device__ __forceinline__ void jadd(uint32_t X3[L], uint32_t Y3[L], uint32_t Z3[L],
                                      const uint32_t X1[L], const uint32_t Y1[L],
                                      const uint32_t Z1[L], const uint32_t X2[L],
                                      const uint32_t Y2[L], const uint32_t Z2[L]) {
-  using Op = pht::Chain<F>;
   uint32_t z1z1[L], z2z2[L], u1[L], u2[L], s1[L], s2[L], h[L], r[L], t[L], hhh[L], v[L];
-  Op::mul(z1z1, Z1, Z1);
-  Op::mul(z2z2, Z2, Z2);
-  Op::mul(u1, X1, z2z2);
-  Op::mul(u2, X2, z1z1);
-  Op::mul(t, Z2, z2z2);
-  Op::mul(s1, Y1, t);
-  Op::mul(t, Z1, z1z1);
-  Op::mul(s2, Y2, t);
-  Op::sub(h, u2, u1);
-  Op::sub(r, s2, s1);
+  mul(z1z1, Z1, Z1);
+  mul(z2z2, Z2, Z2);
+  mul(u1, X1, z2z2);
+  mul(u2, X2, z1z1);
+  mul(t, Z2, z2z2);
+  mul(s1, Y1, t);
+  mul(t, Z1, z1z1);
+  mul(s2, Y2, t);
+  sub(h, u2, u1);
+  sub(r, s2, s1);
 
-  Op::mul(t, h, h);      // hh
-  Op::mul(hhh, h, t);    // hhh
-  Op::mul(v, u1, t);     // v = u1 * hh
-  Op::mul(t, r, r);      // rr
-  Op::sub(X3, t, hhh);
-  Op::add(t, v, v);
-  Op::sub(X3, X3, t);
-  Op::sub(t, v, X3);
-  Op::mul(t, r, t);
-  Op::mul(s1, s1, hhh);
-  Op::sub(Y3, t, s1);
-  Op::mul(t, Z1, Z2);
-  Op::mul(Z3, t, h);
+  mul(t, h, h);      // hh
+  mul(hhh, h, t);    // hhh
+  mul(v, u1, t);     // v = u1 * hh
+  mul(t, r, r);      // rr
+  sub(X3, t, hhh);
+  add(t, v, v);
+  sub(X3, X3, t);
+  sub(t, v, X3);
+  mul(t, r, t);
+  mul(s1, s1, hhh);
+  sub(Y3, t, s1);
+  mul(t, Z1, Z2);
+  mul(Z3, t, h);
 
   const bool p_inf = pht::is_zero(Z1);
   const bool q_inf = pht::is_zero(Z2);
@@ -124,7 +135,7 @@ __device__ __forceinline__ void jadd(uint32_t X3[L], uint32_t Y3[L], uint32_t Z3
     const bool h_zero = pht::is_zero(h);
     const bool r_zero = pht::is_zero(r);
     if (h_zero && r_zero) {  // P == Q: the doubling runs on these lanes only
-      dbl<Op>(X3, Y3, Z3, X1, Y1, Z1);
+      dbl(X3, Y3, Z3, X1, Y1, Z1);
     }
     const bool annihilate = h_zero && !r_zero && !p_inf && !q_inf;
     uint32_t one[L], zero[L];
@@ -149,39 +160,36 @@ __device__ __forceinline__ void madd(uint32_t X3[L], uint32_t Y3[L], uint32_t Z3
                                      const uint32_t Z1[L], const uint32_t X2[L],
                                      const uint32_t Y2[L], bool q_inf) {
   uint32_t z1z1[L], u2[L], s2[L], h[L], r[L], t[L], hhh[L], v[L];
-  pht::mul<F>(z1z1, Z1, Z1);
-  pht::mul<F>(u2, X2, z1z1);
-  pht::mul<F>(t, Z1, z1z1);
-  pht::mul<F>(s2, Y2, t);
-  pht::sub<F>(h, u2, X1);
-  pht::sub<F>(r, s2, Y1);
+  mul(z1z1, Z1, Z1);
+  mul(u2, X2, z1z1);
+  mul(t, Z1, z1z1);
+  mul(s2, Y2, t);
+  sub(h, u2, X1);
+  sub(r, s2, Y1);
 
-  pht::mul<F>(t, h, h);      // hh
-  pht::mul<F>(hhh, h, t);    // hhh
-  pht::mul<F>(v, X1, t);     // v = X1 * hh
-  pht::mul<F>(t, r, r);      // rr
-  pht::sub<F>(X3, t, hhh);
-  pht::add<F>(t, v, v);
-  pht::sub<F>(X3, X3, t);
-  pht::sub<F>(t, v, X3);
-  pht::mul<F>(t, r, t);
-  pht::mul<F>(u2, Y1, hhh);  // u2 reused as Y1 * hhh
-  pht::sub<F>(Y3, t, u2);
-  pht::mul<F>(Z3, Z1, h);
+  mul(t, h, h);      // hh
+  mul(hhh, h, t);    // hhh
+  mul(v, X1, t);     // v = X1 * hh
+  mul(t, r, r);      // rr
+  sub(X3, t, hhh);
+  add(t, v, v);
+  sub(X3, X3, t);
+  sub(t, v, X3);
+  mul(t, r, t);
+  mul(u2, Y1, hhh);  // u2 reused as Y1 * hhh
+  sub(Y3, t, u2);
+  mul(Z3, Z1, h);
 
   const bool p_inf = pht::is_zero(Z1);
   uint32_t one[L], zero[L];
   pht::set_one<F>(one);
   pht::set_zero(zero);
   if (!kNoDouble) {
-    uint32_t Xd[L], Yd[L], Zd[L];
-    dbl<pht::Cios<F>>(Xd, Yd, Zd, X1, Y1, Z1);
     const bool h_zero = pht::is_zero(h);
     const bool r_zero = pht::is_zero(r);
-    const bool is_dbl = h_zero && r_zero;
-    pht::select(X3, is_dbl, Xd, X3);
-    pht::select(Y3, is_dbl, Yd, Y3);
-    pht::select(Z3, is_dbl, Zd, Z3);
+    if (h_zero && r_zero) {  // P == Q: the doubling runs on these lanes only
+      dbl(X3, Y3, Z3, X1, Y1, Z1);
+    }
     const bool annihilate = h_zero && !r_zero && !p_inf;
     pht::select(X3, annihilate, one, X3);
     pht::select(Y3, annihilate, one, Y3);
@@ -249,6 +257,61 @@ __global__ void g1_madd_kernel(const uint32_t* __restrict__ x1, const uint32_t* 
   pht::store(ox, n, i, X3);
   pht::store(oy, n, i, Y3);
   pht::store(oz, n, i, Z3);
+}
+
+// The SRS comb: acc_i = sum_w table[w][digit_w(s_i)] over the 32 8-bit
+// windows of scalar i, in window order 0 to 31, each step K3's full mixed
+// add (q_inf for digit 0, the doubling branch, P + (-P) to infinity), from
+// acc = (one, one, 0). The JAX package runs it as a `fori_loop` of 32 K3
+// calls, each with its gathers of the window's table rows around it, every
+// accumulator through HBM each step. Here one thread owns one scalar, keeps
+// its accumulator in registers and loops over the windows: it reads the
+// scalar limb of each window's digit and the window's table row (16 words:
+// X, then Y) as four 16-byte loads. Neither is held across the add, which
+// keeps the kernel at 128 registers, 4 blocks an SM: the loads wait a few
+// hundred cycles against an add of thousands, and holding the scalar and
+// the next row in registers (158 registers, 3 blocks an SM) measured slower
+// (PERF.md). The table (32 x 256 rows, 512 KB, and 8 KB of infinity flags)
+// is read by every thread and stays in L2; staging it in shared memory
+// would move bytes, which are not the limit. Bound: the multiply-adds, 11 products a
+// lane-window (doubling lanes need an SRS scalar at or above r and take 7
+// more). At 2^14 scalars (the main path's SRS) one thread a scalar is 128
+// blocks, under one wave of 132 SMs, so the kernel is bound there by
+// occupancy and each thread's chain of 32 adds. Spreading a scalar's windows
+// over several threads would add them in another order and change the
+// Jacobian bits; that is not done.
+constexpr int kCombWindows = 32;
+constexpr int kCombEntries = 256;
+constexpr int kCombMinBlocks = 4;  // 128 threads x 4 blocks: at most 128 registers
+
+__global__ void __launch_bounds__(kThreads, kCombMinBlocks)
+    g1_fixed_base_comb_kernel(const uint4* __restrict__ table,
+                              const uint8_t* __restrict__ table_inf,
+                              const uint32_t* __restrict__ scalars, uint32_t* __restrict__ ox,
+                              uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t X[L], Y[L], Z[L];
+  pht::set_one<F>(X);
+  pht::set_one<F>(Y);
+  pht::set_zero(Z);
+#pragma unroll 1
+  for (int w = 0; w < kCombWindows; w++) {
+    const uint32_t limb = scalars[(w >> 2) * n + i];  // L1 holds it for four windows
+    const int e = w * kCombEntries + ((limb >> (8 * (w & 3))) & 0xffu);
+    const uint4* row = table + e * 4;
+    const uint4 w0 = row[0], w1 = row[1], w2 = row[2], w3 = row[3];
+    const uint32_t X2[L] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const uint32_t Y2[L] = {w2.x, w2.y, w2.z, w2.w, w3.x, w3.y, w3.z, w3.w};
+    uint32_t X3[L], Y3[L], Z3[L];
+    madd<false>(X3, Y3, Z3, X, Y, Z, X2, Y2, table_inf[e] != 0);
+    pht::copy(X, X3);
+    pht::copy(Y, Y3);
+    pht::copy(Z, Z3);
+  }
+  pht::store(ox, n, i, X);
+  pht::store(oy, n, i, Y);
+  pht::store(oz, n, i, Z);
 }
 
 // Window sums, one block per row. Coordinates (8, rows, B) limb-first; the
@@ -374,6 +437,20 @@ extern "C" int pht_g1_window_sums(const void* x, const void* y, const void* z, v
   g1_window_sums_kernel<<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z, (uint32_t*)ox, (uint32_t*)oy,
       (uint32_t*)oz, (int)rows, B, log_b);
+  return (int)cudaGetLastError();
+}
+
+// The SRS comb: table (32 * 256, 16) uint32 rows, 16-byte aligned, row
+// w * 256 + d = the affine point d * 2^(8w) * G (X limbs, then Y limbs,
+// Montgomery); table_inf (32 * 256) bytes, nonzero marks a row as infinity;
+// scalars (8, n) standard-form limbs; outputs (8, n) Jacobian.
+extern "C" int pht_g1_fixed_base_comb(const void* table, const void* table_inf,
+                                      const void* scalars, void* ox, void* oy, void* oz,
+                                      long long n, void* stream) {
+  if (n <= 0) return 0;
+  g1_fixed_base_comb_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)table, (const uint8_t*)table_inf, (const uint32_t*)scalars, (uint32_t*)ox,
+      (uint32_t*)oy, (uint32_t*)oz, n);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,12 @@
 //                     paillier_halo2_tpu/msm/pippenger.py:305-330: the whole
 //                     signed bucket loop in one launch (below);
 //   g1_jadd_lazy   -> K6 `padd_lazy` (:220, `_jadd_kernel` :205-216, formula
-//                     `_jacobian_add_lazy` :95-129): the sub-accumulator merge,
-//                     either side possibly at infinity.
+//                     `_jacobian_add_lazy` :95-129): one step of the
+//                     sub-accumulator merge, either side possibly at infinity;
+//   g1_merge_lazy  -> K6 under the `lax.fori_loop` of
+//                     paillier_halo2_tpu/msm/pippenger.py:335-375: the whole
+//                     merge tree of a bucket-loop call, its canonicalisation
+//                     and the window-row layout, in one launch (below).
 // The formulas are K3's and K2's (g1_add.cu) with every product, sum and
 // difference taken in the redundant form, so no normalisation runs inside
 // the hot formula; the MSM canonicalises once after the merge. Both are
@@ -23,13 +27,12 @@
 // the JAX package's order: in K6 the q_inf select is outermost (:124-126),
 // so with both sides at infinity X3, Y3 come from P, unlike K2.
 //
-// K5's formula (both kernels) runs on the carry-chain product
-// (`mul_lazy_cc`, field.cuh); K6 keeps the C++ CIOS product.
+// Both formulas run on field.cuh's carry-chain product (`mul_lazy_cc`).
 //
-// One thread per lane, 128 threads a block, ragged edge masked in the kernel.
-// Bound: integer multiply-adds, 11 (K5) or 16 (K6) Montgomery products of
-// 264 each per lane, against 258 or 288 bytes of traffic; registers limit
-// the blocks in flight.
+// The step kernels: one thread per lane, 128 threads a block, ragged edge
+// masked in the kernel. Bound: integer multiply-adds, 11 (K5) or 16 (K6)
+// Montgomery products of 264 each per lane, against 258 or 288 bytes of
+// traffic; registers limit the blocks in flight.
 //
 // The bucket loop. On the TPU a grid runs in order, so the JAX package runs
 // one bucket step per `while_loop` round, every lane's accumulator through
@@ -104,30 +107,30 @@ __device__ __forceinline__ void jadd_lazy(uint32_t X3[L], uint32_t Y3[L], uint32
                                           const uint32_t Z1[L], const uint32_t X2[L],
                                           const uint32_t Y2[L], const uint32_t Z2[L]) {
   uint32_t z1z1[L], z2z2[L], u1[L], u2[L], s1[L], s2[L], h[L], r[L], t[L], hhh[L], v[L];
-  pht::mul_lazy<F>(z1z1, Z1, Z1);
-  pht::mul_lazy<F>(z2z2, Z2, Z2);
-  pht::mul_lazy<F>(u1, X1, z2z2);
-  pht::mul_lazy<F>(u2, X2, z1z1);
-  pht::mul_lazy<F>(t, Z2, z2z2);
-  pht::mul_lazy<F>(s1, Y1, t);
-  pht::mul_lazy<F>(t, Z1, z1z1);
-  pht::mul_lazy<F>(s2, Y2, t);
-  pht::sub_lazy<F>(h, u2, u1);
-  pht::sub_lazy<F>(r, s2, s1);
+  pht::mul_lazy_cc<F>(z1z1, Z1, Z1);
+  pht::mul_lazy_cc<F>(z2z2, Z2, Z2);
+  pht::mul_lazy_cc<F>(u1, X1, z2z2);
+  pht::mul_lazy_cc<F>(u2, X2, z1z1);
+  pht::mul_lazy_cc<F>(t, Z2, z2z2);
+  pht::mul_lazy_cc<F>(s1, Y1, t);
+  pht::mul_lazy_cc<F>(t, Z1, z1z1);
+  pht::mul_lazy_cc<F>(s2, Y2, t);
+  pht::sub_lazy_cc<F>(h, u2, u1);
+  pht::sub_lazy_cc<F>(r, s2, s1);
 
-  pht::mul_lazy<F>(t, h, h);      // hh
-  pht::mul_lazy<F>(hhh, h, t);    // hhh
-  pht::mul_lazy<F>(v, u1, t);     // v = u1 * hh
-  pht::mul_lazy<F>(t, r, r);      // rr
-  pht::sub_lazy<F>(X3, t, hhh);
-  pht::add_lazy<F>(t, v, v);
-  pht::sub_lazy<F>(X3, X3, t);
-  pht::sub_lazy<F>(t, v, X3);
-  pht::mul_lazy<F>(t, r, t);
-  pht::mul_lazy<F>(s1, s1, hhh);
-  pht::sub_lazy<F>(Y3, t, s1);
-  pht::mul_lazy<F>(t, Z1, Z2);
-  pht::mul_lazy<F>(Z3, t, h);
+  pht::mul_lazy_cc<F>(t, h, h);      // hh
+  pht::mul_lazy_cc<F>(hhh, h, t);    // hhh
+  pht::mul_lazy_cc<F>(v, u1, t);     // v = u1 * hh
+  pht::mul_lazy_cc<F>(t, r, r);      // rr
+  pht::sub_lazy_cc<F>(X3, t, hhh);
+  pht::add_lazy_cc<F>(t, v, v);
+  pht::sub_lazy_cc<F>(X3, X3, t);
+  pht::sub_lazy_cc<F>(t, v, X3);
+  pht::mul_lazy_cc<F>(t, r, t);
+  pht::mul_lazy_cc<F>(s1, s1, hhh);
+  pht::sub_lazy_cc<F>(Y3, t, s1);
+  pht::mul_lazy_cc<F>(t, Z1, Z2);
+  pht::mul_lazy_cc<F>(Z3, t, h);
 
   const bool p_inf = pht::is_zero(Z1);
   const bool q_inf = pht::is_zero(Z2);
@@ -254,6 +257,243 @@ __global__ void __launch_bounds__(kThreads, kLoopMinBlocks)
   pht::store(oz, n_lanes, o, Z);
 }
 
+// The merge. On the TPU each level of every block's halving tree is one K6
+// call over all of the block's (row, bucket) lanes, the tree a `fori_loop`
+// with every partial sum through HBM, then a canonicalisation, a pad of the
+// capped windows' dead buckets and a row reorder as separate XLA ops. Here
+// one launch does all of it. A block of the bucket loop's output is
+// (s, rows, bcap) accumulators, lane off + j * rows * bcap + r * bcap + b,
+// so sub-accumulator j of neighbouring buckets are neighbouring lanes and a
+// warp's threads, a bucket each, read them coalesced; bucket (r, b) reduces its s sub-accumulators t[j] by halving, T(j, m/2) =
+// T(j, m) + T(j + m/2, m) from T(j, s) = t[j] down to T(0, 1), the first
+// operand deciding which X, Y survive an infinity + infinity lane; the
+// result is canonicalised and written at (window rows[r], bucket b); a dead
+// bucket (b >= bcap) is written as (0, 0, 0).
+//
+// The nodes T(g, G), g < G, are independent subtrees over the leaves
+// g + G * i. A thread owns one and adds its s/G leaves serially, depth
+// first: leaf i enters at tree position bitrev(i), so each sum is the
+// halving tree's own, and the at most log2(s/G) pending partial sums wait
+// in shared memory, not in registers (no spills, 3 blocks an SM). Then the
+// G nodes meet:
+//  - s <= 256: G = s/8 threads of one warp a bucket (one thread at s <= 8:
+//    the main path's s = 8 buckets are a thread each, 7 adds with every
+//    lane busy); the levels over g run in registers, the partner fetched by
+//    __shfl_down_sync (24 words), only lanes g < half adding.
+//  - s >= 512 (the top windows of large MSMs: 4 buckets of s = 4,096 at
+//    2^20 points): P = s/512 blocks a bucket, G = 128 P threads of 4 leaves
+//    each; block c holds the nodes c + P t, t < 128, so its 7 levels over t
+//    pair threads of the same block (through shared memory) and end at
+//    T(c, P); the block that finishes a bucket last (a counter per bucket,
+//    after __threadfence) adds the P results level by level. The depth is
+//    3 + 7 + log2 P adds where K6's launches took log2 s.
+// Bound: the multiply-adds, 16 products per tree add, s - 1 adds a live
+// bucket, against 96 B per accumulator read and per bucket written. Folding
+// the merge into the bucket loop's exit does not fit: the loop's lanes run
+// sorted by the additions they need, so a bucket's sub-accumulators sit in
+// different warps and blocks there.
+constexpr int kMergeThreads = 128;
+constexpr int kMergeMinBlocks = 3;  // 128 threads x 3 blocks: at most 170 registers
+constexpr int kMergeFields = 9;     // lane_off, s, bcap, rows, row_first, cta_first,
+                                    // slot_off, G, P (0: G threads of a warp a bucket)
+constexpr int kPointWords = 3 * L;
+
+__device__ __forceinline__ void load_point(uint32_t X[L], uint32_t Y[L], uint32_t Z[L],
+                                           const uint32_t* x, const uint32_t* y,
+                                           const uint32_t* z, int64_t n, int64_t i) {
+  pht::load(X, x, n, i);
+  pht::load(Y, y, n, i);
+  pht::load(Z, z, n, i);
+}
+
+__device__ __forceinline__ void store_point(uint32_t* x, uint32_t* y, uint32_t* z, int64_t n,
+                                            int64_t i, const uint32_t X[L], const uint32_t Y[L],
+                                            const uint32_t Z[L]) {
+  pht::store(x, n, i, X);
+  pht::store(y, n, i, Y);
+  pht::store(z, n, i, Z);
+}
+
+// Shared memory: point k of thread t, word w at [(k * 24 + w) * kMergeThreads + t].
+__device__ __forceinline__ void smem_load(uint32_t X[L], uint32_t Y[L], uint32_t Z[L],
+                                          const uint32_t* sm, int k, int t) {
+#pragma unroll
+  for (int w = 0; w < L; w++) {
+    X[w] = sm[(k * kPointWords + w) * kMergeThreads + t];
+    Y[w] = sm[(k * kPointWords + L + w) * kMergeThreads + t];
+    Z[w] = sm[(k * kPointWords + 2 * L + w) * kMergeThreads + t];
+  }
+}
+
+__device__ __forceinline__ void smem_store(uint32_t* sm, int k, int t, const uint32_t X[L],
+                                           const uint32_t Y[L], const uint32_t Z[L]) {
+#pragma unroll
+  for (int w = 0; w < L; w++) {
+    sm[(k * kPointWords + w) * kMergeThreads + t] = X[w];
+    sm[(k * kPointWords + L + w) * kMergeThreads + t] = Y[w];
+    sm[(k * kPointWords + 2 * L + w) * kMergeThreads + t] = Z[w];
+  }
+}
+
+// (X, Y, Z) = (X1, Y1, Z1) + (X, Y, Z)
+__device__ __forceinline__ void add_left(uint32_t X[L], uint32_t Y[L], uint32_t Z[L],
+                                         const uint32_t X1[L], const uint32_t Y1[L],
+                                         const uint32_t Z1[L]) {
+  uint32_t X3[L], Y3[L], Z3[L];
+  jadd_lazy(X3, Y3, Z3, X1, Y1, Z1, X, Y, Z);
+  pht::copy(X, X3);
+  pht::copy(Y, Y3);
+  pht::copy(Z, Z3);
+}
+
+// (X, Y, Z) = (X, Y, Z) + (X2, Y2, Z2)
+__device__ __forceinline__ void add_right(uint32_t X[L], uint32_t Y[L], uint32_t Z[L],
+                                          const uint32_t X2[L], const uint32_t Y2[L],
+                                          const uint32_t Z2[L]) {
+  uint32_t X3[L], Y3[L], Z3[L];
+  jadd_lazy(X3, Y3, Z3, X, Y, Z, X2, Y2, Z2);
+  pht::copy(X, X3);
+  pht::copy(Y, Y3);
+  pht::copy(Z, Z3);
+}
+
+// T(g, G) over the 2^d leaves g + G * i at lanes first + stride * i, depth
+// first; the pending sums in shared memory slots 0 .. d-1 of this thread.
+__device__ __forceinline__ void subtree(uint32_t X[L], uint32_t Y[L], uint32_t Z[L],
+                                        const uint32_t* x, const uint32_t* y,
+                                        const uint32_t* z, int64_t n_lanes, int64_t first,
+                                        int64_t stride, int d, uint32_t* sm) {
+  uint32_t X1[L], Y1[L], Z1[L];
+  const int t = threadIdx.x;
+  for (int p = 0; p < (1 << d); p++) {
+    const int i = d ? (int)(__brev((unsigned)p) >> (32 - d)) : 0;
+    load_point(X, Y, Z, x, y, z, n_lanes, first + stride * i);
+    int q = p, lvl = 0;
+    for (; q & 1; q >>= 1, lvl++) {
+      smem_load(X1, Y1, Z1, sm, lvl, t);
+      add_left(X, Y, Z, X1, Y1, Z1);
+    }
+    if (p + 1 < (1 << d)) smem_store(sm, lvl, t, X, Y, Z);
+  }
+}
+
+// The halving levels over the n values of threads 0 .. n-1 of the block
+// (n a power of two up to the block), through shared memory slot 0; the
+// result ends in thread 0's registers. Every thread of the block calls it.
+__device__ __forceinline__ void block_tree(uint32_t X[L], uint32_t Y[L], uint32_t Z[L], int n,
+                                           uint32_t* sm) {
+  uint32_t X2[L], Y2[L], Z2[L];
+  const int t = threadIdx.x;
+  for (int half = n >> 1; half > 0; half >>= 1) {
+    __syncthreads();  // slot 0 is free: the previous level has read it
+    if (t >= half && t < 2 * half) smem_store(sm, 0, t - half, X, Y, Z);
+    __syncthreads();
+    if (t < half) {
+      smem_load(X2, Y2, Z2, sm, 0, t);
+      add_right(X, Y, Z, X2, Y2, Z2);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMergeThreads, kMergeMinBlocks)
+    g1_merge_lazy_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                         const uint32_t* __restrict__ z, const int32_t* __restrict__ meta,
+                         int n_blocks, uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                         uint32_t* __restrict__ oz, uint32_t* sx, uint32_t* sy, uint32_t* sz,
+                         int32_t* counters, int64_t n_lanes, int64_t n_scratch, int64_t n_out,
+                         int nb) {
+  extern __shared__ uint32_t sm[];
+  __shared__ int last;
+  int k = 0;  // this CTA's merge block: the last whose first CTA is at or before it
+  while (k + 1 < n_blocks && meta[(k + 1) * kMergeFields + 5] <= (int)blockIdx.x) k++;
+  const int32_t* e = meta + k * kMergeFields;
+  const int64_t lane_off = e[0];
+  const int s = e[1], bcap = e[2], rows = e[3], row_first = e[4], cta_first = e[5];
+  const int64_t slot_off = e[6];
+  const int G = e[7], P = e[8];
+  const int32_t* row_list = meta + n_blocks * kMergeFields;
+  const int t = threadIdx.x;
+  int d = 0;  // log2(s / G)
+  while ((G << d) < s) d++;
+  uint32_t X[L], Y[L], Z[L];
+  const int64_t rb = (int64_t)rows * bcap;  // lanes between sub-accumulators j and j + 1
+  if (P == 0) {  // G threads of one warp a bucket: the live buckets, then the dead
+    const int64_t gi = (int64_t)(blockIdx.x - cta_first) * (kMergeThreads / G) + t / G;
+    const int g = t % G;
+    const bool active = gi < (int64_t)rows * nb, live = gi < rb;
+    int r = 0, b = 0;
+    if (live) {
+      r = (int)(gi / bcap), b = (int)(gi % bcap);
+    } else if (active) {
+      r = (int)((gi - rb) / (nb - bcap)), b = bcap + (int)((gi - rb) % (nb - bcap));
+    }
+    pht::set_zero(X);
+    pht::set_zero(Y);
+    pht::set_zero(Z);
+    if (live) subtree(X, Y, Z, x, y, z, n_lanes, lane_off + g * rb + gi, G * rb, d, sm);
+    uint32_t X2[L], Y2[L], Z2[L];
+    for (int half = G >> 1; half > 0; half >>= 1) {  // G is uniform over the CTA
+#pragma unroll
+      for (int w = 0; w < L; w++) {
+        X2[w] = __shfl_down_sync(0xffffffffu, X[w], half);
+        Y2[w] = __shfl_down_sync(0xffffffffu, Y[w], half);
+        Z2[w] = __shfl_down_sync(0xffffffffu, Z[w], half);
+      }
+      if (live && g < half) add_right(X, Y, Z, X2, Y2, Z2);
+    }
+    if (active && g == 0) {
+      pht::canonicalize<F>(X, X);  // a dead bucket's zeros stay zeros
+      pht::canonicalize<F>(Y, Y);
+      pht::canonicalize<F>(Z, Z);
+      store_point(ox, oy, oz, n_out, (int64_t)row_list[row_first + r] * nb + b, X, Y, Z);
+    }
+    return;
+  }
+  // P blocks a live bucket, then one block for each dead bucket
+  const int64_t ci = blockIdx.x - cta_first, live_ctas = rb * P;
+  if (ci >= live_ctas) {
+    const int64_t dead = ci - live_ctas;
+    const int r = (int)(dead / (nb - bcap)), b = bcap + (int)(dead % (nb - bcap));
+    if (t < 3 * L) {
+      uint32_t* out[3] = {ox, oy, oz};
+      out[t / L][(t % L) * n_out + (int64_t)row_list[row_first + r] * nb + b] = 0u;
+    }
+    return;
+  }
+  const int64_t bucket = ci / P;  // r * bcap + b
+  const int c = (int)(ci % P);
+  const int r = (int)(bucket / bcap), b = (int)(bucket % bcap);
+  subtree(X, Y, Z, x, y, z, n_lanes, lane_off + (c + (int64_t)P * t) * rb + bucket, G * rb, d,
+          sm);
+  block_tree(X, Y, Z, kMergeThreads, sm);  // thread 0: T(c, P)
+  if (P > 1) {
+    const int64_t slot = slot_off + bucket;
+    if (t == 0) {
+      store_point(sx, sy, sz, n_scratch, slot * P + c, X, Y, Z);
+      __threadfence();
+      last = atomicAdd(counters + slot, 1) == P - 1;
+    }
+    __syncthreads();
+    if (!last) return;  // uniform over the CTA
+    __threadfence();
+    if (t < P) {  // the other blocks' results, from L2
+#pragma unroll
+      for (int w = 0; w < L; w++) {
+        X[w] = __ldcg(sx + w * n_scratch + slot * P + t);
+        Y[w] = __ldcg(sy + w * n_scratch + slot * P + t);
+        Z[w] = __ldcg(sz + w * n_scratch + slot * P + t);
+      }
+    }
+    block_tree(X, Y, Z, P, sm);
+  }
+  if (t == 0) {
+    pht::canonicalize<F>(X, X);
+    pht::canonicalize<F>(Y, Y);
+    pht::canonicalize<F>(Z, Z);
+    store_point(ox, oy, oz, n_out, (int64_t)row_list[row_first + r] * nb + b, X, Y, Z);
+  }
+}
+
 inline dim3 grid_for(long long n) { return dim3((unsigned)((n + kThreads - 1) / kThreads)); }
 
 }  // namespace
@@ -297,5 +537,29 @@ extern "C" int pht_g1_bucket_lazy(const void* rows, const void* order, const voi
       (const uint4*)rows, (const int32_t*)order, (const uint8_t*)neg, (const int32_t*)seg,
       (const int32_t*)count, (const int32_t*)sub, (const int32_t*)nsub, (const int32_t*)win,
       (const int32_t*)lane, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n_lanes, n);
+  return (int)cudaGetLastError();
+}
+
+// The merge: x, y, z (8, n_lanes) accumulators in [0, 2p) in the bucket
+// loop's lane order; meta int32, n_blocks entries of kMergeFields words and
+// then the window row of every block row; outputs (8, n_rows * nb)
+// canonical Jacobian buckets; for blocks with P > 1 the scratch (8,
+// n_scratch) each and the counters (zero on entry, one a live bucket),
+// else null. n_ctas: the last block's cta_first plus its count; smem_slots:
+// the largest log2(s / G), at least 1.
+extern "C" int pht_g1_merge_lazy(const void* x, const void* y, const void* z, const void* meta,
+                                 long long n_blocks, void* ox, void* oy, void* oz, void* sx,
+                                 void* sy, void* sz, void* counters, long long n_lanes,
+                                 long long n_scratch, long long n_out, long long nb,
+                                 long long n_ctas, long long smem_slots, void* stream) {
+  if (n_ctas <= 0) return 0;
+  const size_t smem = (size_t)smem_slots * kPointWords * kMergeThreads * sizeof(uint32_t);
+  cudaError_t e = cudaFuncSetAttribute(g1_merge_lazy_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  g1_merge_lazy_kernel<<<(unsigned)n_ctas, kMergeThreads, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z, (const int32_t*)meta,
+      (int)n_blocks, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint32_t*)sx,
+      (uint32_t*)sy, (uint32_t*)sz, (int32_t*)counters, n_lanes, n_scratch, n_out, (int)nb);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,8 @@
 // Replaces the Pallas kernel paillier_halo2_tpu/ff/lazy_mont.py:301
 // (`mont_mul_lazy_pallas`, body `lmul` :142-185), which multiplied signed
 // int16 digit rows and left the result a*b*R^-1 + k*p for a small k. Here
-// each thread owns one lane and runs the 8 x 32-bit CIOS of K1 without its
-// final conditional subtraction (field.cuh `mul_lazy`): inputs and output in
+// each thread owns one lane and runs K1's carry-chain product without its
+// final conditional subtraction (field.cuh `mul_lazy_cc`): inputs and output in
 // [0, 2p), the output congruent to a*b*R^-1 mod p. The int16 digit storage
 // was a TPU trick to halve HBM traffic on a 5-8 GB chip; I/O here is the
 // port's (8, N) limb format.
@@ -32,7 +32,7 @@ __global__ void mont_mul_lazy_kernel(const uint32_t* __restrict__ a,
   uint32_t x[pht::kLimbs], y[pht::kLimbs], r[pht::kLimbs];
   pht::load(x, a, n, i);
   pht::load(y, b, n, i);
-  pht::mul_lazy<F>(r, x, y);
+  pht::mul_lazy_cc<F>(r, x, y);
   pht::store(out, n, i, r);
 }
 

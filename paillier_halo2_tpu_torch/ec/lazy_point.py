@@ -12,6 +12,10 @@ Counterpart of `paillier_halo2_tpu/ec/lazy_point.py:1`:
   bucket loop in one launch, each lane's additions in the rounds' order;
 - `padd_lazy` (K6) <- `padd_lazy` (:220): Jacobian + Jacobian, either side
   possibly at infinity, the q_inf select outermost (:124-126);
+- `merge_lazy` <- K6 under the `lax.fori_loop` of
+  `paillier_halo2_tpu/msm/pippenger.py:335-375`: the signed MSM's whole
+  sub-accumulator merge, its canonicalisation, the capped windows' padding
+  and the window-row order, in one launch;
 - `inf_acc`, `to_lazy_jp`, `canonicalize_jp` <- :243-270, the pipeline's
   entry and exit.
 
@@ -26,6 +30,7 @@ selects in the same order, so the two agree bit for bit.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ff import lazy_mont as lz
@@ -34,7 +39,11 @@ from ..ff.limbs16 import M32, to_i32, u64
 from ..utils import kernels
 from .point_kernels import PACK_WORDS, SPEC, _check, _outputs, _sel, unpack_rows
 
-LAUNCHES = {"padd_mixed_packed_lazy": 0, "padd_lazy": 0, "bucket_loop_lazy": 0}
+LAUNCHES = {"padd_mixed_packed_lazy": 0, "padd_lazy": 0, "bucket_loop_lazy": 0,
+            "merge_lazy": 0}
+MERGE_THREADS = 128  # the merge kernel's CTA
+MERGE_WARP_MAX_S = 256  # up to here s/8 threads of one warp own a bucket
+MERGE_BLOCK_LEAVES = 512  # above it, a CTA per 512 sub-accumulators of a bucket
 
 
 def _mul(a, b):
@@ -153,6 +162,81 @@ def bucket_loop_lazy_plain(packed, order, neg, seg, count, sub, nsub, win, lane,
                          win, lane, n)
 
 
+def merge_rounds(step, acc, blocks, n_buckets: int):
+    """The merge as halving levels, each level one call of `step(lo, hi)`, a
+    Jacobian add of two triples of (8, L) coordinates (K6's plain version,
+    K6 itself, or K2 nodouble on the unsigned route). acc: three (8,
+    n_lanes) accumulators, the bucket loop's output; blocks: the lane
+    layout, a list of (s, bcap, rows), block by block (s, rows, bcap)
+    C-order, s a power of two. Each bucket's s sub-accumulators reduce by
+    out[j] = t[j] + t[j + half], t[j] first; capped windows' dead buckets
+    are (0, 0, 0). Returns three (8, W, n_buckets) tensors in window-row
+    order, W the number of rows."""
+    parts, row_order, off = [], [], 0
+    for s, bc, rows in blocks:
+        nr = len(rows)
+        lb = nr * bc * s
+        blk = tuple(c[:, off : off + lb].reshape(8, s, nr * bc) for c in acc)
+        half = s
+        while half > 1:
+            half //= 2
+            lo = tuple(c[:, :half].reshape(8, -1).contiguous() for c in blk)
+            hi = tuple(c[:, half:].reshape(8, -1).contiguous() for c in blk)
+            blk = tuple(c.reshape(8, half, nr * bc) for c in step(lo, hi))
+        first = torch.stack([c[:, 0] for c in blk]).reshape(3, 8, nr, bc)
+        if bc < n_buckets:
+            first = torch.nn.functional.pad(first, (0, n_buckets - bc))
+        parts.append(first)
+        row_order.extend(rows)
+        off += lb
+    merged = torch.cat(parts, dim=2)
+    inv_rows = torch.from_numpy(np.argsort(np.array(row_order))).to(merged.device)
+    return tuple(merged[i].index_select(1, inv_rows) for i in range(3))
+
+
+def merge_lazy_plain(acc, blocks, n_buckets: int):
+    """The merge's function: `merge_rounds` on K6's plain version, then
+    `canonicalize_jp`: canonical Jacobian buckets (8, W, n_buckets)."""
+    return canonicalize_jp(*merge_rounds(lambda lo, hi: padd_lazy_plain(*lo, *hi), acc, blocks,
+                                         n_buckets))
+
+
+def merge_meta(blocks, n_buckets: int):
+    """The merge kernel's block table (`g1_merge_lazy_kernel`): one int32
+    entry a block (lane offset, s, bcap, rows, first row, first CTA, first
+    counter slot, G, P), then the window row of every block row. A bucket's
+    s sub-accumulators go to G threads of s/G leaves each: G = s/8 threads
+    of one warp (P = 0) up to s = 256, else P = s/512 CTAs of 128 threads
+    with 4 leaves each. Returns (meta, n_ctas, n_slots, n_lanes, n_rows,
+    smem_slots, max_parts); raises ValueError on a layout the kernel does
+    not take."""
+    entries, row_list, lane_off, cta, slots, depth, parts = [], [], 0, 0, 0, 1, 0
+    for s, bc, rows in blocks:
+        nr = len(rows)
+        if s < 1 or s & (s - 1) or not 1 <= bc <= n_buckets or nr < 1:
+            raise ValueError(f"merge_lazy: block (s={s}, bcap={bc}, {nr} rows) not taken")
+        if s <= MERGE_WARP_MAX_S:
+            group, n_parts, slot = max(s // 8, 1), 0, 0
+            ctas = -(-nr * n_buckets // (MERGE_THREADS // group))
+        else:
+            n_parts = s // MERGE_BLOCK_LEAVES
+            group, slot = MERGE_THREADS * n_parts, slots
+            ctas = nr * bc * n_parts + nr * (n_buckets - bc)
+            slots += nr * bc
+        entries.append([lane_off, s, bc, nr, len(row_list), cta, slot, group, n_parts])
+        row_list.extend(rows)
+        lane_off += nr * bc * s
+        cta += ctas
+        depth = max(depth, (s // group).bit_length() - 1)
+        parts = max(parts, n_parts)
+    if sorted(row_list) != list(range(len(row_list))):
+        raise ValueError("merge_lazy: the blocks' rows must be 0 .. W-1, each once")
+    if max(lane_off, cta, slots * max(parts, 1)) >= 1 << 31:
+        raise ValueError("merge_lazy: more lanes than int32 offsets hold")
+    meta = np.array([v for e in entries for v in e] + row_list, dtype=np.int32)
+    return meta, cta, slots, lane_off, len(row_list), depth, parts
+
+
 # -- wrappers ------------------------------------------------------------------
 
 
@@ -226,6 +310,35 @@ def padd_lazy(P1, P2):
     )
     kernels.check(rc, "padd_lazy")
     LAUNCHES["padd_lazy"] += 1
+    return out
+
+
+def merge_lazy(acc, blocks, n_buckets: int):
+    """The signed MSM's merge in one launch (`merge_lazy_plain`): acc three
+    (8, n_lanes) int32 accumulators in [0, 2p), the bucket loop's output in
+    the lane layout `blocks` gives; returns canonical Jacobian buckets, three
+    (8, W, n_buckets) int32 tensors in window-row order."""
+    meta, n_ctas, n_slots, n_lanes, n_rows, smem_slots, parts = merge_meta(blocks, n_buckets)
+    X = acc[0]
+    _check("merge_lazy", tuple(acc), n_lanes, X.device)
+    if X.device.type == "cpu":
+        return merge_lazy_plain(acc, blocks, n_buckets)
+    dev = X.device
+    out = tuple(torch.empty((8, n_rows, n_buckets), dtype=torch.int32, device=dev)
+                for _ in range(3))
+    n_scratch = n_slots * parts if parts > 1 else 0  # T(c, P) of the CTAs of a bucket
+    scratch = [torch.empty((8, n_scratch), dtype=torch.int32, device=dev) for _ in range(3)]
+    counters = torch.zeros(n_slots if n_scratch else 0, dtype=torch.int32, device=dev)
+    meta_t = torch.from_numpy(meta).to(dev)
+    ptr = lambda t: t.data_ptr() if t.numel() else None  # noqa: E731
+    rc = kernels.lib().pht_g1_merge_lazy(
+        *(c.data_ptr() for c in acc), meta_t.data_ptr(), len(blocks),
+        *(c.data_ptr() for c in out), *(ptr(c) for c in scratch), ptr(counters),
+        n_lanes, n_scratch, n_rows * n_buckets, n_buckets, n_ctas, smem_slots,
+        kernels.stream_ptr(dev),
+    )
+    kernels.check(rc, "merge_lazy")
+    LAUNCHES["merge_lazy"] += 1
     return out
 
 

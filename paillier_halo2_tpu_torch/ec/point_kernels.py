@@ -10,6 +10,9 @@ Counterpart of `paillier_halo2_tpu/ec/pallas_point.py:1`:
 - `window_sums`      <- K2's use in `_window_sums`
                         (`paillier_halo2_tpu/msm/pippenger.py:403-432`): the
                         MSM's bucket weighting, one launch for every row
+- `fixed_base_comb`  <- K3's use in `_fixed_base_msm_kernel`
+                        (`paillier_halo2_tpu/plonk/srs.py:90-112`): the SRS's
+                        32-window comb, one launch for every scalar
 
 Coordinates are `(8, N)` int32 Fq limb tensors in Montgomery form; `q_inf`
 is an `(N,)` bool tensor. `nodouble=True` drops the doubling branch: a lane
@@ -24,13 +27,16 @@ from __future__ import annotations
 import torch
 
 from ..ff import field as f
+from ..ff.limbs16 import u64
 from ..ff.mulmod import mont_mul_plain
 from ..utils import kernels
 
 SPEC = f.FQ
 PACK_WORDS = 16  # 8 limbs of X, then 8 of Y
-LAUNCHES = {"g1_jadd": 0, "g1_madd": 0, "g1_madd_packed": 0, "window_sums": 0}
+LAUNCHES = {"g1_jadd": 0, "g1_madd": 0, "g1_madd_packed": 0, "window_sums": 0,
+            "fixed_base_comb": 0}
 WINDOW_MAX_BUCKETS = 1210  # two buffers of B points in a block's shared memory
+COMB_WINDOWS, COMB_ENTRIES = 32, 256  # 8-bit windows of a 256-bit scalar
 
 
 # -- plain versions ------------------------------------------------------------
@@ -176,6 +182,30 @@ def window_sums_plain(X, Y, Z):
     return tuple(c[:, :, 0].contiguous() for c in t)
 
 
+def comb_rounds(step, table, table_inf, scalars):
+    """The SRS comb as 32 calls of `step(X1, Y1, Z1, X2, Y2, q_inf)`, a full
+    mixed add (K3's plain version or K3 itself): from acc = (one, one, 0),
+    window w = 0 .. 31 adds the table row w * 256 + digit w of each scalar.
+    table: (32 * 256, 16) packed affine rows, row w * 256 + d = d * 2^(8w)
+    * G; table_inf: (32 * 256,) bool; scalars: (8, N) standard-form limbs.
+    Returns the (8, N) Jacobian sums."""
+    n = scalars.shape[1]
+    one, zero = _one_zero(torch.empty((8, n), dtype=torch.int32, device=scalars.device))
+    acc = (one.contiguous(), one.contiguous(), zero)
+    u = u64(scalars)
+    for w in range(COMB_WINDOWS):
+        idx = w * COMB_ENTRIES + ((u[w // 4] >> (8 * (w % 4))) & 0xFF)
+        X2, Y2 = unpack_rows(table.index_select(0, idx))
+        acc = step(*acc, X2, Y2, table_inf.index_select(0, idx))
+    return acc
+
+
+def fixed_base_comb_plain(table, table_inf, scalars):
+    """The SRS comb's function: `_fixed_base_msm_kernel` (JAX srs.py:90-112),
+    `comb_rounds` on K3's plain version."""
+    return comb_rounds(g1_madd_plain, table, table_inf, scalars)
+
+
 # -- wrappers ------------------------------------------------------------------
 
 
@@ -283,4 +313,28 @@ def window_sums(X, Y, Z):
     )
     kernels.check(rc, "window_sums")
     LAUNCHES["window_sums"] += 1
+    return out
+
+
+def fixed_base_comb(table, table_inf, scalars):
+    """The SRS comb in one launch (`fixed_base_comb_plain`): table (32 * 256,
+    16) int32 rows, 16-byte aligned on the card; table_inf (32 * 256,) bool;
+    scalars (8, N) int32 standard-form limbs. Returns (8, N) Jacobian."""
+    n = scalars.shape[1] if scalars.dim() == 2 else -1
+    rows = COMB_WINDOWS * COMB_ENTRIES
+    _check("fixed_base_comb", (scalars,), n, scalars.device,
+           [(table, torch.int32, (rows, PACK_WORDS)), (table_inf, torch.bool, (rows,))])
+    if scalars.device.type == "cpu":
+        return fixed_base_comb_plain(table, table_inf, scalars)
+    if table.data_ptr() % 16:
+        raise ValueError("fixed_base_comb: table rows must be 16-byte aligned")
+    out = _outputs(scalars)
+    if n == 0:
+        return out
+    rc = kernels.lib().pht_g1_fixed_base_comb(
+        table.data_ptr(), table_inf.data_ptr(), scalars.data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), n, kernels.stream_ptr(scalars.device),
+    )
+    kernels.check(rc, "fixed_base_comb")
+    LAUNCHES["fixed_base_comb"] += 1
     return out

@@ -40,7 +40,7 @@ def mont_mul_lazy_plain(spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def add_lazy(spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a + b, minus 2p if that is >= 2p (field.cuh `add_lazy`)."""
+    """a + b, minus 2p if that is >= 2p (field.cuh `add_lazy_cc`)."""
     ua, ub = u64(a), u64(b)
     p2 = _p2_limbs(spec)
     s, c = [], 0
@@ -57,7 +57,7 @@ def add_lazy(spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def sub_lazy(spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a - b, plus 2p if that borrows (field.cuh `sub_lazy`)."""
+    """a - b, plus 2p if that borrows (field.cuh `sub_lazy_cc`)."""
     ua, ub = u64(a), u64(b)
     p2 = _p2_limbs(spec)
     d, bw = [], 0

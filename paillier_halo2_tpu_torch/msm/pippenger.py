@@ -9,8 +9,9 @@ Counterpart of `paillier_halo2_tpu/msm/pippenger.py:1`:
   window, per-window sub-accumulator counts and bucket caps
   (`_sub_schedule_signed`); the bucket loop adds +-P by K5's formula on
   redundant-form accumulators, the whole loop in one launch
-  (`ec/lazy_point.bucket_loop_lazy`), the sub-accumulators merge with K6,
-  and one canonicalisation ends it (`:309-323`, `:347-369`, `:394-397`);
+  (`ec/lazy_point.bucket_loop_lazy`), and the sub-accumulators' merge with
+  its canonicalisation is one launch too (`ec/lazy_point.merge_lazy`, K6's
+  tree) (`:309-323`, `:347-369`, `:394-397`);
 - the unsigned route (`PAILLIER_TPU_LAZY=0` there, and its CPU route):
   window bits that divide 8, keys sliced straight out of the scalar limbs,
   K4 under `nodouble` in the bucket loop and K2 `nodouble` in the merge.
@@ -153,8 +154,8 @@ def _bucket_accumulate(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...
                        bcaps: tuple[int, ...] | None = None, neg=None, stats=None):
     """Per-(window, bucket) sums. px/py: (8, N) affine Montgomery bases; p_inf:
     (N,) bool; keys: (W, N) keys in [0, n_buckets); neg: (W, N) bool
-    negation masks, which select the signed route (K5, K6 and a final
-    canonicalisation; else K4 and K2). bcaps[w] caps window w's bucket lanes
+    negation masks, which select the signed route (the bucket-loop and
+    merge kernels; else K4 and K2). bcaps[w] caps window w's bucket lanes
     (its keys stay below it); the buckets above a cap are infinity. Returns
     canonical Jacobian buckets, each coordinate (8, W, n_buckets). Bases
     must be pairwise distinct."""
@@ -180,7 +181,9 @@ def _bucket_accumulate(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...
     counts[:, 0] = 0  # bucket 0 contributes nothing
 
     # Static lane maps: windows grouped by (sub-count, bucket cap) into
-    # rectangular blocks (rows, bcap, subs), flattened C-order onto one axis.
+    # rectangular blocks (subs, rows, bcap), flattened C-order onto one axis:
+    # sub-accumulator j of neighbouring buckets are neighbouring lanes, so
+    # the merge kernel's threads, a bucket each, read them coalesced.
     blocks: list[tuple[int, int, list[int]]] = []
     for w in sorted(range(n_windows), key=lambda w: (subs[w], bcaps[w])):
         if blocks and blocks[-1][:2] == (subs[w], bcaps[w]):
@@ -190,9 +193,9 @@ def _bucket_accumulate(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...
     win_np, bkt_np, sub_np, nsub_np = [], [], [], []
     for s, bc, rows in blocks:
         nr = len(rows)
-        win_np.append(np.repeat(np.array(rows, np.int64), bc * s))
-        bkt_np.append(np.tile(np.repeat(np.arange(bc, dtype=np.int64), s), nr))
-        sub_np.append(np.tile(np.arange(s, dtype=np.int64), nr * bc))
+        win_np.append(np.tile(np.repeat(np.array(rows, np.int64), bc), s))
+        bkt_np.append(np.tile(np.arange(bc, dtype=np.int64), nr * s))
+        sub_np.append(np.repeat(np.arange(s, dtype=np.int64), nr * bc))
         nsub_np.append(np.full(nr * bc * s, s, np.int64))
     as_t = lambda parts: torch.from_numpy(np.concatenate(parts)).to(device)  # noqa: E731
     win_map, bkt_map, sub_map, nsub_map = (as_t(x) for x in (win_np, bkt_np, sub_np, nsub_np))
@@ -218,35 +221,13 @@ def _bucket_accumulate(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...
         acc = lzp.bucket_rounds(_k4_step, packed, order_flat, None, *table, perm, n)
 
     # Merge each block's S sub-accumulators in a halving tree (S is a power
-    # of two), pad capped windows' dead buckets with infinity, then restore
-    # the window-row order.
-    parts = []
-    row_order: list[int] = []
-    off = 0
-    for s, bc, rows in blocks:
-        nr = len(rows)
-        lb = nr * bc * s
-        blk = tuple(c[:, off : off + lb].reshape(N_LIMBS, nr, bc, s) for c in acc)
-        half = s
-        while half > 1:
-            half //= 2
-            lo = tuple(c[..., :half].contiguous().reshape(N_LIMBS, -1) for c in blk)
-            hi = tuple(c[..., half:].contiguous().reshape(N_LIMBS, -1) for c in blk)
-            if lazy:
-                out = lzp.padd_lazy(lo, hi)
-            else:
-                out = bn254.padd(lo, hi, nodouble=True)
-            blk = tuple(c.reshape(N_LIMBS, nr, bc, half) for c in out)
-        first = torch.stack([c[..., 0] for c in blk])  # (3, 8, nr, bc)
-        if bc < n_buckets:
-            first = torch.nn.functional.pad(first, (0, n_buckets - bc))
-        parts.append(first)
-        row_order.extend(rows)
-        off += lb
-    merged = torch.cat(parts, dim=2)
-    inv_rows = torch.from_numpy(np.argsort(np.array(row_order))).to(device)
-    merged = tuple(merged[i].index_select(1, inv_rows) for i in range(3))
-    return lzp.canonicalize_jp(*merged) if lazy else merged
+    # of two), pad capped windows' dead buckets with infinity, restore the
+    # window-row order: one launch on the signed route, which also
+    # canonicalises; level by level of K2 on the unsigned one.
+    if lazy:
+        return lzp.merge_lazy(acc, blocks, n_buckets)
+    return lzp.merge_rounds(lambda lo, hi: bn254.padd(lo, hi, nodouble=True), acc, blocks,
+                            n_buckets)
 
 
 def _window_sums(buckets, n_buckets: int):

@@ -3,8 +3,9 @@ device.
 
 Counterpart of `paillier_halo2_tpu/plonk/srs.py:1`: a deterministic dev-mode
 tau is derived from a seed; the G1 powers [tau^i]G are computed as a batched
-fixed-base comb — 8-bit windows into a host-precomputed 32 x 256 table, one
-gather and one mixed add (K3) per window — then normalized to affine on the
+fixed-base comb — 8-bit windows into a host-precomputed 32 x 256 table, K3's
+mixed add per window, all 32 windows in one kernel launch
+(`ec/point_kernels.fixed_base_comb`) — then normalized to affine on the
 device with a batched Fermat inversion. The cache keeps the JAX package's npz
 format and name (`params/kzg_bn254_dev_{k}.npz`, digits-first uint32
 arrays); the port converts the layout when it loads or saves.
@@ -20,14 +21,14 @@ import torch
 
 from ..ec import bn254
 from ..ec import host as ech
+from ..ec import point_kernels as pk
 from ..ff import field as f
 from ..ff.host import FR_MOD
-from ..ff.limbs16 import u64
 
 DEFAULT_PARAMS_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "..", "..", "params"
 )
-N_WINDOWS = 32  # 8-bit windows of a 256-bit scalar
+N_WINDOWS = pk.COMB_WINDOWS
 
 
 @dataclasses.dataclass
@@ -80,22 +81,8 @@ def batched_fixed_base_mul(scalars: list[int], device) -> bn254.JPoint:
     """[s_i]G for many scalars at once: acc_i = sum_w table[w][digit_{w,i}]."""
     flat = [p for row in _comb_table() for p in row]
     px, py, pinf = bn254.pack_affine(flat, device)
-    tbl_x = px.reshape(8, N_WINDOWS, 256)
-    tbl_y = py.reshape(8, N_WINDOWS, 256)
-    tbl_inf = pinf.reshape(N_WINDOWS, 256)
-    u = u64(f.pack_ints([s % FR_MOD for s in scalars], device))  # (8, N)
-    n = len(scalars)
-    acc = (
-        bn254.SPEC.limbs("one_mont", device)[:, None].expand(8, n).contiguous(),
-        bn254.SPEC.limbs("one_mont", device)[:, None].expand(8, n).contiguous(),
-        torch.zeros((8, n), dtype=torch.int32, device=device),
-    )
-    for w in range(N_WINDOWS):
-        d = (u[w // 4] >> (8 * (w % 4))) & 0xFF  # digit w of every scalar
-        gx = tbl_x[:, w].index_select(1, d)
-        gy = tbl_y[:, w].index_select(1, d)
-        acc = bn254.padd_mixed(acc, (gx, gy), tbl_inf[w].index_select(0, d))
-    return acc
+    sd = f.pack_ints([s % FR_MOD for s in scalars], device)  # (8, N)
+    return pk.fixed_base_comb(bn254.pack_points_dense(px, py), pinf, sd)
 
 
 def generate_srs(k: int, seed: bytes = b"", device="cuda") -> SRS:

@@ -111,9 +111,11 @@ def lib() -> ctypes.CDLL:
         L.pht_g1_jadd_lazy.argtypes = [vp] * 9 + [ll, vp]
         L.pht_g1_window_sums.argtypes = [vp] * 6 + [ll, ll, vp]
         L.pht_g1_bucket_lazy.argtypes = [vp] * 12 + [ll, ll, vp]
+        L.pht_g1_fixed_base_comb.argtypes = [vp] * 6 + [ll, vp]
+        L.pht_g1_merge_lazy.argtypes = [vp] * 4 + [ll] + [vp] * 7 + [ll] * 6 + [vp]
         fns = (L.pht_mont_mul, L.pht_g1_jadd, L.pht_g1_madd, L.pht_mont_mul_lazy,
                L.pht_g1_madd_lazy, L.pht_g1_jadd_lazy, L.pht_g1_window_sums,
-               L.pht_g1_bucket_lazy)
+               L.pht_g1_bucket_lazy, L.pht_g1_fixed_base_comb, L.pht_g1_merge_lazy)
         for fn in fns:
             fn.restype = ci
         _lib = L

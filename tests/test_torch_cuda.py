@@ -179,7 +179,8 @@ def test_lazy_point_kernels_match_plain(dev, point_operands):
     out = lp.padd_lazy(acc, (X2, Y2, Z2))
     torch.cuda.synchronize()
     assert all(torch.equal(o, r) for o, r in zip(out, lp.padd_lazy_plain(*acc, X2, Y2, Z2)))
-    assert lp.LAUNCHES == {k: v + (k != "bucket_loop_lazy") for k, v in before.items()}
+    assert lp.LAUNCHES == {k: v + (k in ("padd_mixed_packed_lazy", "padd_lazy"))
+                           for k, v in before.items()}
     no_neg = torch.zeros_like(neg)
     lazy = lp.canonicalize_jp(*lp.padd_mixed_packed_lazy(X1, Y1, Z1, packed, qinf, no_neg))
     k4 = pk.g1_madd_packed(X1, Y1, Z1, packed, qinf, nodouble=True)
@@ -197,10 +198,11 @@ def test_signed_msm_2e10_on_card_matches_fixture(dev):
     ex, ey = json.loads((ROOT / "params_fixtures" / "bench_msm_expected_10.json").read_text())
     assert got == (int(ex, 16), int(ey, 16))
     after = {**lp.LAUNCHES, **pk.LAUNCHES}
-    # one launch of each loop kernel, K6 merges, and no K5 or K2 step
+    # one launch of each loop kernel and of the merge, and no K5, K6 or K2 step
     assert after["bucket_loop_lazy"] == before["bucket_loop_lazy"] + 1
     assert after["window_sums"] == before["window_sums"] + 1
-    assert after["padd_lazy"] > before["padd_lazy"]
+    assert after["merge_lazy"] == before["merge_lazy"] + 1
+    assert after["padd_lazy"] == before["padd_lazy"]
     assert after["padd_mixed_packed_lazy"] == before["padd_mixed_packed_lazy"]
     assert after["g1_jadd"] == before["g1_jadd"]
 
@@ -285,3 +287,71 @@ def test_bucket_loop_kernel_matches_plain(dev, n, n_windows, n_buckets, subs):
     unaligned.copy_(args[0])
     with pytest.raises(ValueError, match="aligned"):
         lp.bucket_loop_lazy(unaligned, *args[1:])
+
+
+def _comb_table(dev):
+    from paillier_halo2_tpu_torch.plonk.srs import _comb_table as host_table
+
+    px, py, pinf = bn254.pack_affine([p for row in host_table() for p in row], dev)
+    return bn254.pack_points_dense(px, py), pinf
+
+
+@pytest.mark.parametrize("lanes", [1, 1000, 1 << 14])
+def test_fixed_base_comb_kernel_matches_plain(dev, lanes):
+    """The SRS comb on random scalars below r, with 0, 1, r - 1, equal
+    scalars, and r and 49 * 2^249 - r, which reach the annihilation and the
+    doubling branches, first."""
+    table, inf = _comb_table(dev)
+    rng = np.random.default_rng(lanes)
+    scalars = [int.from_bytes(rng.bytes(32), "little") % ech.R for _ in range(lanes)]
+    edge = [0, 1, ech.R - 1, ech.R, 49 * (1 << 249) - ech.R, scalars[-1]]
+    scalars[: len(edge)] = edge[:lanes]
+    sd = f.pack_ints(scalars, dev)
+    before = pk.LAUNCHES["fixed_base_comb"]
+    out = pk.fixed_base_comb(table, inf, sd)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["fixed_base_comb"] == before + 1
+    assert all(torch.equal(o, r) for o, r in zip(out, pk.fixed_base_comb_plain(table, inf, sd)))
+    got = bn254.unpack_jacobian(tuple(c[:, :16] for c in out))
+    assert got == [ech.g1_mul(ech.G1, s % ech.R) for s in scalars[:16]]
+    with pytest.raises(ValueError, match="aligned"):
+        raw = torch.empty(table.numel() + 1, dtype=torch.int32, device=dev)
+        unaligned = raw[1:].view(table.shape)
+        unaligned.copy_(table)
+        pk.fixed_base_comb(unaligned, inf, sd)
+
+
+MERGE_LAYOUTS = {
+    # (s, bcap, rows), n_buckets: groups of 1, 4, 32 threads and a CTA a
+    # bucket (s = 128, 4096), capped windows, rows out of order
+    "mixed": ([(8, 33, [0, 2, 1]), (4096, 4, [3]), (1, 5, [4]), (2, 33, [5]), (64, 7, [6]),
+               (128, 3, [7])], 33),
+    # the 2^14 MSM's layout at c = 8: s = 8 for 31 windows, s = 32 for the top one
+    "k14": ([(8, 129, list(range(31))), (32, 51, [31])], 129),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(MERGE_LAYOUTS))
+def test_merge_kernel_matches_plain(dev, layout):
+    """The merge on redundant-form accumulators (random values in [0, 2p),
+    every seventh lane at infinity, in both encodings)."""
+    blocks, nb = MERGE_LAYOUTS[layout]
+    n_lanes = sum(s * bc * len(r) for s, bc, r in blocks)
+    rng = np.random.default_rng(n_lanes)
+    acc = []
+    for c in range(3):
+        words = rng.integers(0, 1 << 32, size=(n_lanes, 8), dtype=np.uint64)
+        vals = [int.from_bytes(w.astype(np.uint32).tobytes(), "little") % (2 * Q) for w in words]
+        for i in range(3, n_lanes, 7):
+            vals[i] = (RM if i % 14 == 3 else 0) if c < 2 else 0
+        acc.append(f.pack_ints(vals, dev))
+    acc = tuple(acc)
+    before = dict(lp.LAUNCHES)
+    out = lp.merge_lazy(acc, blocks, nb)
+    torch.cuda.synchronize()
+    assert lp.LAUNCHES["merge_lazy"] == before["merge_lazy"] + 1
+    assert lp.LAUNCHES["padd_lazy"] == before["padd_lazy"]
+    ref = lp.merge_lazy_plain(acc, blocks, nb)
+    assert all(torch.equal(o, r) for o, r in zip(out, ref))
+    stepwise = lp.canonicalize_jp(*lp.merge_rounds(lp.padd_lazy, acc, blocks, nb))  # K6 launches
+    assert all(torch.equal(o, r) for o, r in zip(out, stepwise))

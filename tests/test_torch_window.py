@@ -76,9 +76,11 @@ def test_window_sums_plain_matches_jax(n_buckets):
 
 def test_signed_bucket_loop_matches_jax(monkeypatch):
     """The signed route's bucket sums (the loop through
-    `bucket_loop_lazy_plain`, the K6 merge, one canonicalisation) equal the
-    JAX package's `_bucket_impl` on its lazy route, as affine points: 64
-    bases, one at infinity, c = 10."""
+    `bucket_loop_lazy_plain`, the merge through `merge_lazy_plain`, one
+    canonicalisation) equal the JAX package's `_bucket_impl` on its lazy
+    route in their canonical Jacobian bits (X, Y and Z, infinities
+    included), and so as affine points: 64 bases, one at infinity, c = 10,
+    whose top window's 15 buckets take s = 64 sub-accumulators each."""
     monkeypatch.setenv("PAILLIER_TPU_LAZY", "1")
     prng = random.Random(22)
     n, c = 64, 10
@@ -89,12 +91,15 @@ def test_signed_bucket_loop_matches_jax(monkeypatch):
     n_buckets = (1 << (c - 1)) + 1
     keys_t, neg_t = pip._signed_keys(f.pack_ints(scalars, "cpu"), c)
     subs, bcaps = pip._sub_schedule_signed(keys_t.shape[0], c, 1)
+    assert (subs[-1], bcaps[-1]) == (64, 15)
     px, py, pinf = tb.pack_affine(pts, "cpu")
     got = pip._bucket_accumulate(px, py, pinf, keys_t, n_buckets, subs, bcaps, neg_t)
     jx, jy, jinf = jb.pack_affine(pts)
     keys_j, neg_j = jpip._signed_keys(jnp.asarray(fj.pack_ints(scalars)), c)
     want = jpip._bucket_impl(jnp.asarray(jx), jnp.asarray(jy), jnp.asarray(jinf), keys_j, neg_j,
                              n_buckets, subs, bcaps)
+    for t, j in zip(got, want):
+        assert np.array_equal(f.to_ref_digits(t), np.asarray(j, np.uint32))
     got_pts = tb.unpack_jacobian(tuple(t.reshape(8, -1) for t in got))
     want_pts = jb.unpack_jacobian(tuple(j.reshape(32, -1) for j in want))
     assert got_pts == want_pts
