@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card and check it.
 
-    python3 chip_smoke.py                 # every phase, as a release check
+    python3 chip_smoke.py                 # phases 1-8, as a release check
     python3 chip_smoke.py --phases 1,2    # build the kernels and check them only
+    python3 chip_smoke.py --phases 1,9    # the 2048-bit MockProver (opt-in)
 
 Phases:
 
@@ -47,7 +48,30 @@ Phases:
    against the levels composed of K6 launches, and these kernels are timed;
 7. the lazy-mulmod entry (bench.py's `mulmod_lazy` phase): ten chained K7
    products over Fr at 2^20 lanes, equal after canonicalisation to the same
-   chain through K1; K7's launches are counted here.
+   chain through K1; K7's launches are counted here;
+8. the MockProver (`base_test().run`, the reference's test path), K1 for
+   its gate products: the reference's two test geometries (encryption at
+   ENC=128/LIMB=64 and addition at ENC=264/LIMB=88, k=16, lookup_bits=15,
+   `tests/test_gadgets.py`'s inputs) satisfied and equal to the host
+   oracle; the 512-bit encryption of `tests/test_big_geometry.py` (about
+   10.8 M rows) satisfied one-shot and streamed in 2^21-row chunks; a
+   tampered copy (16 values set to v + 1 mod p, among them a gate, a
+   lookup, a copy and a constant row, a chunk's first row and the three
+   overlap rows after a chunk's end) with equal failure arrays one-shot,
+   chunked and on the host oracle; K1 held against its plain version on
+   that check's own b*c operands. Each run prints its counts, route, pack
+   seconds, device-check milliseconds (CUDA events), K1 launches, peak
+   device memory and the check's memory bound. K1's launches over this
+   phase are counted apart from the main path's.
+
+Not in the default set:
+
+9. BASELINE.json config 1: the 2048-bit encryption MockProver (about 319 M
+   rows), one-shot where the device's free memory holds it, else chunked;
+   it first checks the host's MemAvailable, and prints synthesis, pack and
+   check times, the route, peak host RSS and peak device memory; then it
+   checks the table once more under torch.profiler and prints the device
+   time by kernel.
 
 It needs a CUDA device and fails at once without one. Every failure raises.
 Before the last line it prints one JSON object with each kernel's launch
@@ -130,6 +154,14 @@ WORK = {
     "padd_mixed_packed_lazy": (11, 0, 3 * 32 + 64 + 2 + 3 * 32),
 }
 MAIN_K, MAIN_LOOKUP_BITS, MAIN_ENC, MAIN_LIMB = 14, 13, 128, 64
+# Phase 8: the reference's MockProver geometries (tests/test_gadgets.py's
+# RNG seed) and the 512-bit stream (tests/test_big_geometry.py's seed).
+MOCK_SEED, MOCK_K, MOCK_LOOKUP_BITS = 20260817, 16, 15
+BIG_SEED, BIG_ENC, BIG_LIMB, BIG_CHUNK_ROWS = 2048, 512, 64, 1 << 21
+# Phase 9: host bytes the 2048-bit run needs: its table's 319 M Python ints
+# and index arrays with synthesis's transients peaked at 21.9 to 24.9 GiB
+# of RSS on the H100 machine (PERF.md), and this leaves a margin.
+CONFIG1_ENC, CONFIG1_HOST_BYTES = 2048, 32 << 30
 
 
 def log(msg: str) -> None:
@@ -1029,6 +1061,234 @@ def run_mulmod_lazy(dev, log_n: int = 20) -> dict:
     return counts
 
 
+# -- phases 8 and 9: the MockProver ------------------------------------------------
+
+
+def mock_bytes(gates: int, lookups: int, copies: int, consts: int) -> int:
+    """Bytes a device check must move: each index read once (int64), the
+    limb rows it gathers (4 a gate, 1 a lookup or constant, 2 a copy; 32 B
+    each), the constants' limbs, and one mask byte written per check."""
+    checks = gates + lookups + copies + consts
+    return (8 * (checks + copies) + 32 * (4 * gates + lookups + 2 * copies + consts)
+            + 32 * consts + checks)
+
+
+def same_mock(a, b) -> bool:
+    """Two MockResults agree field for field, arrays in order."""
+    import numpy as np
+
+    return a.satisfied == b.satisfied and all(
+        np.array_equal(getattr(a, name), getattr(b, name))
+        for name in ("gate_failures", "lookup_failures", "copy_failures", "const_failures"))
+
+
+def run_mock(dev, label: str, fn):
+    """fn(stats) on the card with the launch counts and the peak memory
+    reset first; prints the run's line; returns (result, stats, K1
+    launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats: dict = {}
+    t0 = time.monotonic()
+    res = fn(stats)
+    wall = time.monotonic() - t0
+    k1 = read_counts()["mont_mul"]
+    on_card = (stats["copies"], stats["consts"]) if stats["route"] == "one-shot" else (0, 0)
+    nbytes = mock_bytes(stats["gates"], stats["lookups"], *on_card)
+    where = stats.get("why") or f"{stats['chunks']} chunks of {stats['chunk_rows']} rows"
+    host = f", copies and constants on the host {stats['host_s']:.3f} s" if "host_s" in stats else ""
+    log(f"  {label}: {stats['rows']} rows, {stats['gates']} gates, {stats['lookups']} lookups, "
+        f"{stats['copies']} copies, {stats['consts']} constants; route {stats['route']} ({where}); "
+        f"pack {stats['pack_s']:.3f} s, device check {stats['check_ms']:.3f} ms (CUDA events){host}, "
+        f"wall {wall:.3f} s; memory bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} B over "
+        f"3.35 TB/s); K1 launches {k1}; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    return res, stats, k1
+
+
+def mock_reference_inputs():
+    """The reference's two MockProver tests (tests/test_gadgets.py:75-110):
+    (label, circuit, input), drawn from its module RNG in file order (the
+    ENC=32 encryption first, then ENC=128, then ENC=264)."""
+    from paillier_halo2_tpu_torch.bignum.host import paillier_add_native, paillier_enc_native
+    from paillier_halo2_tpu_torch.harness.circuits import (
+        PaillierAddCipherInput,
+        PaillierEncryptionInput,
+        paillier_enc_add_test,
+        paillier_enc_test,
+    )
+
+    rng = random.Random(MOCK_SEED)
+
+    def draw(enc):
+        n = rng.getrandbits(enc) | 1
+        return n, *(rng.getrandbits(enc) for _ in range(3))
+
+    draw(32)
+    n, g, m, r = draw(128)
+    enc = PaillierEncryptionInput(128, 64, n, g, m, r, paillier_enc_native(n, g, m, r))
+    n, g, c1, c2 = draw(264)
+    add = PaillierAddCipherInput(88, 264, n, g, c1, c2, paillier_add_native(n, c1, c2))
+    return [("encryption ENC=128/LIMB=64", paillier_enc_test, enc),
+            ("addition ENC=264/LIMB=88", paillier_enc_add_test, add)]
+
+
+def big_enc_table(enc: int):
+    """tests/test_big_geometry.py's encryption table at `enc` bits (LIMB=64,
+    lookup_bits=15; its RNG's first draw)."""
+    from paillier_halo2_tpu_torch.bignum.host import paillier_enc_native
+    from paillier_halo2_tpu_torch.gadgets.context import Context
+    from paillier_halo2_tpu_torch.gadgets.range import RangeChip
+    from paillier_halo2_tpu_torch.harness.circuits import PaillierEncryptionInput, paillier_enc_test
+
+    rng = random.Random(BIG_SEED)
+    n = rng.getrandbits(enc) | (1 << (enc - 1)) | 1
+    g, m, r = (rng.getrandbits(enc) for _ in range(3))
+    ctx = Context()
+    paillier_enc_test(ctx, RangeChip(ctx, MOCK_LOOKUP_BITS), PaillierEncryptionInput(
+        enc, BIG_LIMB, n, g, m, r, paillier_enc_native(n, g, m, r)))
+    return ctx.finalize()
+
+
+def tamper(table, chunk_rows: int, seed: int = 8):
+    """A copy of `table` with 16 values set to v + 1 mod p: a gate row, a
+    lookup row (one at 2^15 - 1 where there is one, so it leaves the
+    range), a copy row, a constant row, the first row of one chunk, the
+    three overlap rows after another chunk's end, and 8 random rows."""
+    import numpy as np
+
+    from paillier_halo2_tpu_torch.ff.host import FR_MOD
+    from paillier_halo2_tpu_torch.gadgets.context import VirtualTable
+
+    rng = np.random.default_rng(seed)
+    vals = table.values
+    top = table.lookups[vals[table.lookups] == (1 << MOCK_LOOKUP_BITS) - 1]
+    lookup_rows = top if len(top) else table.lookups
+    b1, b2 = rng.choice(np.arange(1, -(-table.n_rows // chunk_rows)), 2, replace=False)
+    rows = [int(table.gates[rng.integers(len(table.gates))]) + int(rng.integers(4)),
+            int(lookup_rows[rng.integers(len(lookup_rows))]),
+            int(table.copy_a[rng.integers(len(table.copy_a))]),
+            int(table.const_idx[rng.integers(len(table.const_idx))]),
+            int(b1) * chunk_rows, *(int(b2) * chunk_rows + i for i in range(3)),
+            *(int(x) for x in rng.integers(0, table.n_rows, 8))]
+    bad = vals.copy()
+    for r in rows:
+        bad[r] = (int(bad[r]) + 1) % FR_MOD
+    return VirtualTable(bad, table.gates, table.copy_a, table.copy_b, table.const_idx,
+                        table.const_val, table.lookups), rows
+
+
+def run_mock_phase(dev) -> dict:
+    """Phase 8. Returns K1's kernels-line entry: the check's b*c operands
+    held against the plain version and timed, and K1's launches over the
+    phase's runs."""
+    import torch
+
+    from paillier_halo2_tpu_torch.ff import mulmod
+    from paillier_halo2_tpu_torch.harness.base_test import base_test
+    from paillier_halo2_tpu_torch.mock import prover as mock
+
+    launches = 0
+    for label, circuit, inp in mock_reference_inputs():
+        tester = (base_test().k(MOCK_K).lookup_bits(MOCK_LOOKUP_BITS).expect_satisfied(True)
+                  .device(dev))
+        out, _, k1 = run_mock(dev, f"{label}, k={MOCK_K}", lambda st: tester.run(
+            lambda ctx, rc: circuit(ctx, rc, inp), stats=st))
+        launches += k1
+        require(same_mock(out.mock, mock.mock_prove_host(out.table, MOCK_LOOKUP_BITS)),
+                f"the {label} MockProver differs from the host oracle")
+        log(f"    satisfied, equal to mock_prove_host field for field; synthesis "
+            f"{out.synth_time_s:.3f} s, {out.config}")
+
+    t0 = time.monotonic()
+    table = big_enc_table(BIG_ENC)
+    log(f"  {BIG_ENC}-bit encryption table synthesized in {time.monotonic() - t0:.3f} s")
+    lk = MOCK_LOOKUP_BITS
+    with CaptureCall(mulmod, "mont_mul", 1) as cap:  # call 0: to_mont(b); 1: b*c
+        one, st, k1 = run_mock(dev, f"{BIG_ENC}-bit one-shot", lambda st: mock.mock_prove_torch(
+            table, lk, device=dev, stats=st))
+    launches += k1
+    require(st["route"] == "one-shot", f"the {BIG_ENC}-bit table did not fit the card one-shot")
+    chk, _, k1 = run_mock(dev, f"{BIG_ENC}-bit chunked", lambda st: mock.mock_prove_chunked(
+        table, lk, chunk_rows=BIG_CHUNK_ROWS, device=dev, stats=st))
+    launches += k1
+    require(one.satisfied and chk.satisfied, f"the {BIG_ENC}-bit MockProver is not satisfied")
+
+    bad, rows = tamper(table, BIG_CHUNK_ROWS)
+    log(f"  tampered rows: {rows}")
+    one_b, _, k1 = run_mock(dev, f"{BIG_ENC}-bit tampered, one-shot",
+                            lambda st: mock.mock_prove_torch(bad, lk, device=dev, stats=st))
+    launches += k1
+    chk_b, _, k1 = run_mock(dev, f"{BIG_ENC}-bit tampered, chunked", lambda st: mock.mock_prove_chunked(
+        bad, lk, chunk_rows=BIG_CHUNK_ROWS, device=dev, stats=st))
+    launches += k1
+    t0 = time.monotonic()
+    host = mock.mock_prove_host(bad, lk)
+    host_s = time.monotonic() - t0
+    require(not host.satisfied, "the tampered table satisfies the host oracle")
+    require(same_mock(one_b, host) and same_mock(chk_b, host),
+            "the tampered table's failures differ between one-shot, chunked and the host oracle")
+    log(f"    failures equal on one-shot, chunked and host (host oracle {host_s:.3f} s): " + "; ".join(
+        f"{name} {len(a)} (first {a[:8].tolist()})" for name, a in (
+            ("gates", host.gate_failures), ("lookups", host.lookup_failures),
+            ("copies", host.copy_failures), ("constants", host.const_failures))))
+
+    spec, a, b = cap.args
+    require(a.shape[1] == min(len(table.gates), mock.SLICE), "the captured call is not b*c")
+    out, ref = mulmod.mont_mul(spec, a, b), mulmod.mont_mul_plain(spec, a, b)
+    torch.cuda.synchronize()
+    err = max_abs_err([out], [ref])
+    require(torch.equal(out, ref), "mont_mul differs from its plain version on the MockProver's b*c")
+    entry = {"max_abs_err": err, "lanes": a.shape[1], "double_lanes": 0, "launches": launches,
+             "ms": cuda_ms(lambda: mulmod.mont_mul(spec, a, b), 20),
+             "plain_ms": cuda_ms(lambda: mulmod.mont_mul_plain(spec, a, b), 3),
+             "device_ms": device_ms(lambda: mulmod.mont_mul(spec, a, b), 10, "mont_mul_kernel<pht::Fr>")}
+    log(f"  K1 on the {BIG_ENC}-bit check's b*c ({a.shape[1]} lanes): equal to its plain version "
+        f"(max_abs_err {err}); kernel {entry['ms']} ms per call ({entry['device_ms']} ms on the "
+        f"device), plain {entry['plain_ms']} ms; K1 launches over phase 8: {launches}")
+    return entry
+
+
+def run_config1(dev) -> None:
+    """Phase 9: BASELINE.json config 1, the 2048-bit encryption MockProver."""
+    import resource
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paillier_halo2_tpu_torch.mock import prover as mock
+
+    with open("/proc/meminfo") as fh:
+        avail = next(int(line.split()[1]) * 1024 for line in fh if line.startswith("MemAvailable:"))
+    log(f"  host MemAvailable {avail / 2**30:.2f} GiB; this run needs about "
+        f"{CONFIG1_HOST_BYTES / 2**30:.0f} GiB")
+    require(avail >= CONFIG1_HOST_BYTES,
+            f"the host has {avail / 2**30:.2f} GiB available, below the "
+            f"{CONFIG1_HOST_BYTES / 2**30:.0f} GiB the {CONFIG1_ENC}-bit run needs")
+    t0 = time.monotonic()
+    table = big_enc_table(CONFIG1_ENC)
+    log(f"  {CONFIG1_ENC}-bit encryption table synthesized in {time.monotonic() - t0:.3f} s")
+    res, _, _ = run_mock(dev, f"{CONFIG1_ENC}-bit", lambda st: mock.mock_prove_torch(
+        table, MOCK_LOOKUP_BITS, device=dev, stats=st))
+    res.assert_satisfied()
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    log(f"  peak host RSS {rss / 2**30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res, _, _ = run_mock(dev, f"{CONFIG1_ENC}-bit again, under torch.profiler",
+                             lambda st: mock.mock_prove_torch(table, MOCK_LOOKUP_BITS, device=dev,
+                                                              stats=st))
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    log(f"  device time {sum(r[0] for r in rows) / 1e3:.3f} ms; by kernel: " + "; ".join(
+        f"{key[:70]} {count} launches {us / 1e3:.3f} ms" for us, count, key in rows[:8]))
+    res.assert_satisfied()
+    torch.cuda.synchronize()
+
+
 def bound(name: str, entry: dict, imad_per_s: float):
     """(bound_ms, bound_by) of one timed call of `name` (see WORK), or of
     the work an entry counted itself (`ops`, `bytes`)."""
@@ -1042,11 +1302,22 @@ def bound(name: str, entry: dict, imad_per_s: float):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def kernel_entry(name: str, r: dict, launches, where: str, imad_per_s: float) -> dict:
+    """One kernel's object on the kernels line."""
+    source, replaces = KERNELS[name]
+    bound_ms, bound_by = bound(name, r, imad_per_s)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "device_ms": r["device_ms"], "launches_counted_on": where}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7", help="comma-separated phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8", help="comma-separated phases to run")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
+    t_start = time.monotonic()
     import torch
 
     if not torch.cuda.is_available():
@@ -1131,23 +1402,30 @@ def main() -> int:
     if 7 in phases:
         log("[7] lazy-mulmod entry, Fr, 2^20 lanes")
         launches["mont_mul_lazy"] = run_mulmod_lazy(dev)["mont_mul_lazy"]
+    mock_k1 = None
+    if 8 in phases:
+        log(f"[8] MockProver: the reference's geometries, {BIG_ENC}-bit one-shot and chunked, tampered")
+        mock_k1 = run_mock_phase(dev)
+        require(mock_k1["launches"] > 0, "the MockProver launched no K1")
+    if 9 in phases:
+        log(f"[9] BASELINE.json config 1: the {CONFIG1_ENC}-bit MockProver")
+        run_config1(dev)
     if {3, 5, 7} <= phases:
         for name in KERNELS:
             if name not in OFF_PATH:
                 require(launches[name] > 0, f"kernel {name} was not launched on its path")
 
+    log(f"phases {sorted(phases)} passed in {time.monotonic() - t_start:.1f} s")
+    kernels_line = []
     if {2, 3} <= phases:
-        kernels_line = []
-        for name, (source, replaces) in KERNELS.items():
-            r = results[name]
-            bound_ms, bound_by = bound(name, r, imad_per_s)
-            kernels_line.append({
-                "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches.get(name), "max_abs_err": r["max_abs_err"],
-                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None, "device_ms": r["device_ms"],
-                "launches_counted_on": LAUNCH_PATH.get(name, "phase 5, the main path"),
-            })
+        for name in KERNELS:
+            kernels_line.append(kernel_entry(name, results[name], launches.get(name),
+                                             LAUNCH_PATH.get(name, "phase 5, the main path"),
+                                             imad_per_s))
+    if mock_k1 is not None:
+        kernels_line.append(kernel_entry("mont_mul", mock_k1, mock_k1["launches"],
+                                         "phase 8, the MockProver", imad_per_s))
+    if kernels_line:
         print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Harness of the PyTorch port (counterpart of
 `paillier_halo2_tpu/harness/__init__.py:1`)."""
-from .base_test import BLINDING_ROWS, BaseTester, ConfigParams, base_test
+from .base_test import BLINDING_ROWS, BaseTester, ConfigParams, RunResult, base_test
 from .bench import BenchStats, bench_builder
 from .circuits import (
     PaillierAddCipherInput,
@@ -16,6 +16,7 @@ __all__ = [
     "ConfigParams",
     "PaillierAddCipherInput",
     "PaillierEncryptionInput",
+    "RunResult",
     "base_test",
     "bench_builder",
     "paillier_enc_add_test",

@@ -22,6 +22,11 @@ from paillier_halo2_tpu_torch.ec import point_kernels as pk
 from paillier_halo2_tpu_torch.ff import field as f
 from paillier_halo2_tpu_torch.ff import lazy_mont as lz
 from paillier_halo2_tpu_torch.ff import mulmod
+from paillier_halo2_tpu_torch.bignum.host import paillier_enc_native
+from paillier_halo2_tpu_torch.gadgets.context import Context, VirtualTable
+from paillier_halo2_tpu_torch.gadgets.range import RangeChip
+from paillier_halo2_tpu_torch.harness.circuits import PaillierEncryptionInput, paillier_enc_test
+from paillier_halo2_tpu_torch.mock import prover as mock
 from paillier_halo2_tpu_torch.msm.pippenger import msm_packed
 from paillier_halo2_tpu_torch.plonk.srs import generate_srs
 
@@ -355,3 +360,37 @@ def test_merge_kernel_matches_plain(dev, layout):
     assert all(torch.equal(o, r) for o, r in zip(out, ref))
     stepwise = lp.canonicalize_jp(*lp.merge_rounds(lp.padd_lazy, acc, blocks, nb))  # K6 launches
     assert all(torch.equal(o, r) for o, r in zip(out, stepwise))
+
+
+@pytest.mark.parametrize("route", ["one-shot", "chunked"])
+def test_mock_prove_on_card_matches_host(dev, route):
+    """The MockProver on the card (K1 for the gate products) against the
+    host oracle on a tampered ENC 32 / LIMB 16 table: the three overlap
+    rows after the first 2^10-row chunk, the next chunk's first row, a
+    gate, a copy, a constant and a lookup out of range."""
+    prng = random.Random(99)
+    n = prng.getrandbits(32) | 1
+    g, m, r = (prng.getrandbits(32) for _ in range(3))
+    ctx = Context()
+    paillier_enc_test(ctx, RangeChip(ctx, 10),
+                      PaillierEncryptionInput(32, 16, n, g, m, r, paillier_enc_native(n, g, m, r)))
+    t = ctx.finalize()
+    vals = t.values.copy()
+    chunk = 1 << 10
+    for row in (chunk, chunk + 1, chunk + 2, 2 * chunk, int(t.gates[7]) + 3, int(t.copy_b[5]),
+                int(t.const_idx[0])):
+        vals[row] = (int(vals[row]) + 1) % f.FR.p
+    vals[int(t.lookups[3])] = 1 << 10
+    t = VirtualTable(vals, t.gates, t.copy_a, t.copy_b, t.const_idx, t.const_val, t.lookups)
+    before = mulmod.LAUNCHES["mont_mul"]
+    if route == "one-shot":
+        stats = {}
+        got = mock.mock_prove_torch(t, 10, device=dev, stats=stats)
+        assert stats["route"] == "one-shot"
+    else:
+        got = mock.mock_prove_chunked(t, 10, chunk_rows=chunk, device=dev)
+    assert mulmod.LAUNCHES["mont_mul"] > before
+    want = mock.mock_prove_host(t, 10)
+    assert not want.satisfied and got.satisfied == want.satisfied
+    for name in ("gate_failures", "lookup_failures", "copy_failures", "const_failures"):
+        assert np.array_equal(getattr(got, name), getattr(want, name)), name

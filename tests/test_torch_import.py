@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from paillier_halo2_tpu_torch import native
+from paillier_halo2_tpu_torch.entry import entry
+from paillier_halo2_tpu_torch.gadgets.context import Context
 from paillier_halo2_tpu_torch.harness.base_test import base_test
+from paillier_halo2_tpu_torch.mock import prover as mock
 from paillier_halo2_tpu_torch.msm import pippenger
 from paillier_halo2_tpu_torch.plonk import srs
 from paillier_halo2_tpu_torch.utils import kernels
@@ -28,7 +31,18 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 if {every}:
     for name in names:
         importlib.import_module(name)
+    # the MockProver's entry points run on the CPU without JAX too
+    from paillier_halo2_tpu_torch.entry import entry
+    from paillier_halo2_tpu_torch.harness.base_test import base_test
+    import contextlib, io
+    fn, args = entry(device="cpu")
+    assert not any(m.any() for m in fn(*args))
+    with contextlib.redirect_stdout(io.StringIO()):  # the route line
+        out = base_test().k(8).lookup_bits(4).device("cpu").run(
+            lambda ctx, rc: rc.range_check(ctx.load_witness([3, 9]), 4))
+    assert out.mock.satisfied
 from paillier_halo2_tpu_torch.utils import kernels
+assert {{"paillier_halo2_tpu_torch.mock.prover", "paillier_halo2_tpu_torch.entry"}} <= set(names)
 assert len(names) > 40, names
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert "paillier_halo2_tpu" not in sys.modules
@@ -102,8 +116,15 @@ def _empty_circuit(ctx, range_chip, inp):
     pass
 
 
-@pytest.mark.parametrize("entry", ["generate_srs", "read_or_create_srs", "msm", "bench_builder"])
-def test_entry_points_default_to_the_card(entry, tmp_path):
+def _empty_table():
+    ctx = Context()
+    ctx.load_witness([1])
+    return ctx.finalize()
+
+
+@pytest.mark.parametrize("name", ["generate_srs", "read_or_create_srs", "msm", "bench_builder",
+                                  "mock_prove_torch", "mock_prove_chunked", "base_test_run", "entry"])
+def test_entry_points_default_to_the_card(name, tmp_path):
     """Called without a device, each entry point asks for the card and
     raises where there is none; it never runs on the CPU instead."""
     if torch.cuda.is_available():
@@ -114,7 +135,11 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
         "msm": lambda: pippenger.msm([None, None], [1, 2]),
         "bench_builder": lambda: base_test().k(4).lookup_bits(3).params_dir(str(tmp_path))
         .bench_builder(None, None, _empty_circuit),
+        "mock_prove_torch": lambda: mock.mock_prove_torch(_empty_table(), 3),
+        "mock_prove_chunked": lambda: mock.mock_prove_chunked(_empty_table(), 3),
+        "base_test_run": lambda: base_test().k(4).lookup_bits(3).run(lambda ctx, rc: None),
+        "entry": entry,
     }
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
-        calls[entry]()
+        calls[name]()
     assert not list(tmp_path.iterdir())  # nothing was written on the way
