@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card and check it.
 
-    python3 chip_smoke.py                 # phases 1-8, as a release check
+    python3 chip_smoke.py                 # phases 1-8 and 10, as a release check
     python3 chip_smoke.py --phases 1,2    # build the kernels and check them only
+    python3 chip_smoke.py --phases 1,10   # proving keys saved and loaded, GWC, instances
     python3 chip_smoke.py --phases 1,9    # the 2048-bit MockProver (opt-in)
 
 Phases:
@@ -63,6 +64,28 @@ Phases:
    seconds, device-check milliseconds (CUDA events), K1 launches, peak
    device memory and the check's memory bound. K1's launches over this
    phase are counted apart from the main path's.
+10. proving keys, GWC and instance columns: (a) phase 4's K=10 proof under
+   GWC multi-open, byte-identical to `tests/torch_fixtures/slice_enc_k10_gwc.json`,
+   verified, a tampered copy rejected; (b) the K=10 statement of
+   `tests/test_instance.py` (n, g and the ciphertext public), byte-identical
+   to `instance_enc_k10.json`, verified with its public values, rejected
+   with a ciphertext limb changed, refused without them; (c) the addition
+   circuit at `bench_add.py`'s geometry (ENC=128/LIMB=64, k=14,
+   lookup_bits=13, its `random.Random(141)` inputs) as `bench_add.py` runs
+   it: SRS from phase 5's directory (generated here when phase 5 does not
+   run), synthesis, `table_fingerprint`, keygen, `save_proving_key` under
+   `build/chip_smoke_keys/`, `load_proving_key` under the fingerprint, a
+   proof from the loaded key, byte-identical to one from the fresh key with
+   the same blinding seed and verified against the original verifying key;
+   a load under another fingerprint raises; (d) phase 5's circuit and inputs
+   at k=14 under GWC: keygen, proof, verify, a tampered copy rejected, the
+   key saved and loaded back as GWC. Each step's seconds, the key file's and
+   the proofs' bytes and peak device memory are printed. Over (c) and (d)
+   each loop kernel launches once per bucket pass of an MSM call, no K3,
+   K5, K6 or K2 step runs, and the comb only if the SRS was generated here;
+   these launches are counted apart from phase 5's. The loop kernels are
+   held against their plain versions on (c)'s first MSM call (and the comb
+   on its SRS where it ran), K1 on the widest operands of (c) and (d).
 
 Not in the default set:
 
@@ -77,7 +100,8 @@ It needs a CUDA device and fails at once without one. Every failure raises.
 Before the last line it prints one JSON object with each kernel's launch
 count (over the path that runs it), error, times and bound; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
-Build outputs and the SRS cache go under `build/` in this checkout.
+Build outputs, the SRS cache and phase 10's keys go under `build/` in this
+checkout.
 """
 from __future__ import annotations
 
@@ -162,6 +186,10 @@ BIG_SEED, BIG_ENC, BIG_LIMB, BIG_CHUNK_ROWS = 2048, 512, 64, 1 << 21
 # and index arrays with synthesis's transients peaked at 21.9 to 24.9 GiB
 # of RSS on the H100 machine (PERF.md), and this leaves a margin.
 CONFIG1_ENC, CONFIG1_HOST_BYTES = 2048, 32 << 30
+# Phase 10: bench_add.py's widths and inputs (random.Random(141)); its k and
+# lookup_bits are the main path's.
+ADD_ENC, ADD_LIMB, ADD_SEED = 128, 64, 141
+PHASE10_BLIND = b"chip-smoke phase 10"
 
 
 def log(msg: str) -> None:
@@ -855,7 +883,8 @@ def check_msm(dev, results: dict, imad_per_s: float) -> dict:
     return counts[False]
 
 
-def check_slice_fixture(dev) -> None:
+def check_slice_fixture(dev, name: str = "slice_enc_k10.json",
+                        multiopen: str = "shplonk") -> None:
     from paillier_halo2_tpu_torch.gadgets.context import Context
     from paillier_halo2_tpu_torch.gadgets.range import RangeChip
     from paillier_halo2_tpu_torch.harness.circuits import (
@@ -867,23 +896,27 @@ def check_slice_fixture(dev) -> None:
     from paillier_halo2_tpu_torch.plonk.srs import generate_srs
     from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
 
-    with open(os.path.join(ROOT, "tests", "torch_fixtures", "slice_enc_k10.json")) as fh:
-        fx = json.load(fh)
+    fx = torch_fixture(name)
     inp = PaillierEncryptionInput(enc_bits=fx["enc_bits"], limb_bits=fx["limb_bits"],
                                   **fx["inputs"])
     ctx = Context()
     paillier_enc_test(ctx, RangeChip(ctx, fx["lookup_bits"]), inp)
     table = ctx.finalize()
     srs = generate_srs(fx["k"], fx["srs_seed"].encode(), dev)
-    pk = keygen(table, fx["k"], fx["lookup_bits"], srs)
+    pk = keygen(table, fx["k"], fx["lookup_bits"], srs, multiopen=multiopen)
     proof = create_proof(pk, table, fx["blinding_seed"].encode())
-    require(proof.hex() == fx["proof_hex"], "K=10 proof differs from the JAX fixture")
-    require(verify_proof(pk.vk, srs, proof), "K=10 proof does not verify")
+    require(proof.hex() == fx["proof_hex"], f"K=10 {multiopen} proof differs from {name}")
+    require(verify_proof(pk.vk, srs, proof), f"K=10 {multiopen} proof does not verify")
     bad = bytearray(proof)
     bad[len(bad) // 2] ^= 1
-    require(not verify_proof(pk.vk, srs, bytes(bad)), "tampered K=10 proof verifies")
-    log(f"  K=10 proof: {len(proof)} bytes, byte-identical to the JAX fixture, verified; "
+    require(not verify_proof(pk.vk, srs, bytes(bad)), f"tampered K=10 {multiopen} proof verifies")
+    log(f"  K=10 {multiopen} proof: {len(proof)} bytes, byte-identical to {name}, verified; "
         "tampered copy rejected")
+
+
+def torch_fixture(name: str) -> dict:
+    with open(os.path.join(ROOT, "tests", "torch_fixtures", name)) as fh:
+        return json.load(fh)
 
 
 def main_input():
@@ -1289,6 +1322,251 @@ def run_config1(dev) -> None:
     torch.cuda.synchronize()
 
 
+# -- phase 10: proving keys saved and loaded, GWC, instance columns -------------------
+
+
+class CountCalls:
+    """While active, counts the calls of `module.name`."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.seen = module, name, 0
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def wrapped(*args, **kwargs):
+            self.seen += 1
+            return fn(*args, **kwargs)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+class CaptureLargest(CaptureCall):
+    """While active, keeps a copy of the arguments of the call of
+    `module.name` whose third argument has the most elements (K1's
+    (spec, a, b))."""
+
+    def __init__(self, module, name: str):
+        super().__init__(module, name, -1)
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def wrapped(*args):
+            if self.args is None or args[2].numel() > self.args[2].numel():
+                self.args = _clone(args)
+            self.seen += 1
+            return fn(*args)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+
+def timed(fn):
+    """(fn(), seconds), the card synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def instance_table(fx):
+    """`tests/test_instance.py`'s statement: the encryption checked in the
+    circuit, then n, g and the ciphertext limbs exposed as public inputs."""
+    from paillier_halo2_tpu_torch.gadgets import (
+        BigUintChip,
+        Context,
+        EncryptionPublicKeyAssigned,
+        PaillierChip,
+    )
+    from paillier_halo2_tpu_torch.gadgets.range import RangeChip
+
+    enc, limb, x = fx["enc_bits"], fx["limb_bits"], fx["inputs"]
+    ctx = Context()
+    bu = BigUintChip(RangeChip(ctx, fx["lookup_bits"]), limb)
+    pc = PaillierChip.construct(bu, enc)
+    n_a, g_a = bu.assign_integer(x["n"], enc), bu.assign_integer(x["g"], enc)
+    c = pc.encrypt(EncryptionPublicKeyAssigned(n_a, g_a), bu.assign_integer(x["m"], enc),
+                   bu.assign_integer(x["r"], enc))
+    res_a = bu.assign_integer(x["res"], enc * 2)
+    bu.assert_equal_fresh(c, res_a)
+    for cells in (n_a.limbs, g_a.limbs, res_a.limbs):
+        ctx.expose_public(cells)
+    return ctx.finalize()
+
+
+def check_instance_fixture(dev) -> None:
+    from paillier_halo2_tpu_torch.plonk.keygen import keygen
+    from paillier_halo2_tpu_torch.plonk.prover import create_proof
+    from paillier_halo2_tpu_torch.plonk.srs import generate_srs
+    from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
+
+    fx = torch_fixture("instance_enc_k10.json")
+    table = instance_table(fx)
+    publics = table.public_values()
+    require(publics == fx["publics"], "the instance statement's public values differ from the fixture")
+    srs = generate_srs(fx["k"], fx["srs_seed"].encode(), dev)
+    pk = keygen(table, fx["k"], fx["lookup_bits"], srs)
+    proof = create_proof(pk, table, fx["blinding_seed"].encode())
+    require(pk.vk.num_instance == 1, "the instance statement has no instance column")
+    require(proof.hex() == fx["proof_hex"], "K=10 instance proof differs from instance_enc_k10.json")
+    require(verify_proof(pk.vk, srs, proof, instances=publics), "K=10 instance proof does not verify")
+    bad = list(publics)
+    bad[-1] = (bad[-1] + 1) % (1 << fx["limb_bits"])
+    require(not verify_proof(pk.vk, srs, proof, instances=bad),
+            "K=10 instance proof verifies with a ciphertext limb changed")
+    try:
+        verify_proof(pk.vk, srs, proof)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "the verifier took an instance proof without its public values")
+    log(f"  K=10 instance proof: {len(proof)} bytes, {len(publics)} public values, byte-identical "
+        "to instance_enc_k10.json, verified; rejected with a ciphertext limb changed; refused "
+        "without instances=")
+
+
+def add_input():
+    from paillier_halo2_tpu_torch.bignum.host import paillier_add_native
+    from paillier_halo2_tpu_torch.harness.circuits import PaillierAddCipherInput
+
+    prng = random.Random(ADD_SEED)  # bench_add.py's inputs
+    n = prng.getrandbits(ADD_ENC) | (1 << (ADD_ENC - 1)) | 1
+    g, c1, c2 = (prng.getrandbits(ADD_ENC) for _ in range(3))
+    return PaillierAddCipherInput(limb_bits=ADD_LIMB, enc_bits=ADD_ENC, n=n, g=g, c1=c1, c2=c2,
+                                  res=paillier_add_native(n, c1, c2))
+
+
+def run_key_path(dev, label: str, circuit, inp, srs, key_dir: str, multiopen: str):
+    """Synthesis, fingerprint, keygen, save, load under the fingerprint,
+    proof from the loaded key, verify against the fresh key's verifying key;
+    prints the seconds and bytes. Returns (table, fresh pk, loaded pk, proof)."""
+    import torch
+
+    from paillier_halo2_tpu_torch.gadgets.context import Context
+    from paillier_halo2_tpu_torch.gadgets.range import RangeChip
+    from paillier_halo2_tpu_torch.plonk.keygen import keygen
+    from paillier_halo2_tpu_torch.plonk.prover import create_proof
+    from paillier_halo2_tpu_torch.plonk.serialize import (
+        load_proving_key,
+        save_proving_key,
+        table_fingerprint,
+    )
+    from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
+
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def synth():
+        ctx = Context()
+        circuit(ctx, RangeChip(ctx, MAIN_LOOKUP_BITS), inp)
+        return ctx.finalize()
+
+    table, t_synth = timed(synth)
+    fp, t_fp = timed(lambda: table_fingerprint(table, MAIN_K, MAIN_LOOKUP_BITS, multiopen))
+    pk, t_keygen = timed(lambda: keygen(table, MAIN_K, MAIN_LOOKUP_BITS, srs, multiopen=multiopen))
+    path = os.path.join(key_dir, f"pk_{label}_k{MAIN_K}_{multiopen}.npz")
+    _, t_save = timed(lambda: save_proving_key(pk, path, table_fp=fp))
+    pk2, t_load = timed(lambda: load_proving_key(path, srs, expect_table_fp=fp, device=dev))
+    proof, t_proof = timed(lambda: create_proof(pk2, table, PHASE10_BLIND))
+    ok, t_verify = timed(lambda: verify_proof(pk.vk, srs, proof))
+    require(ok, f"the {label} proof from the loaded key does not verify")
+    require(pk2.vk.multiopen == multiopen and pk2.vk == pk.vk,
+            f"the loaded {label} key's verifying key differs from the saved one")
+    log(f"  {label}, k={MAIN_K}, {multiopen}: {table.n_rows} rows, {pk.vk.num_advice} advice + "
+        f"{pk.vk.num_lookup_advice} lookup-advice columns; synthesis {t_synth:.4f} s, fingerprint "
+        f"{t_fp:.4f} s, keygen {t_keygen:.4f} s, save {t_save:.4f} s, load {t_load:.4f} s, proof "
+        f"(loaded key) {t_proof:.4f} s, verify {t_verify:.4f} s; key file {os.path.getsize(path)} "
+        f"bytes, proof {len(proof)} bytes; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    return table, pk, pk2, proof, path, fp
+
+
+def run_key_phase(dev, params_dir: str, srs_generated_here: bool, imad_per_s: float) -> list:
+    """Phase 10 (c) and (d); returns the kernels-line entries of the path's
+    kernels, their launches counted over (c) and (d)."""
+    import torch
+
+    from paillier_halo2_tpu_torch.ff import mulmod
+    from paillier_halo2_tpu_torch.harness.circuits import paillier_enc_add_test, paillier_enc_test
+    from paillier_halo2_tpu_torch.msm import pippenger
+    from paillier_halo2_tpu_torch.plonk import kzg
+    from paillier_halo2_tpu_torch.plonk.prover import create_proof
+    from paillier_halo2_tpu_torch.plonk.serialize import load_proving_key, table_fingerprint
+    from paillier_halo2_tpu_torch.plonk.srs import read_or_create_srs
+    from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
+
+    key_dir = os.path.join(ROOT, "build", "chip_smoke_keys")
+    shutil.rmtree(key_dir, ignore_errors=True)
+    os.makedirs(key_dir)
+    torch.cuda.synchronize()
+    zero_counts()
+    with (LoopCaptures() as cap, CaptureLargest(mulmod, "mont_mul") as k1_cap,
+          CountCalls(kzg, "msm_packed_multi") as msm_calls,
+          CountCalls(pippenger, "_signed_keys") as passes):
+        srs, t_srs = timed(lambda: read_or_create_srs(MAIN_K, device=dev, params_dir=params_dir))
+        log(f"  SRS k={MAIN_K} {'generated' if srs_generated_here else 'loaded from phase 5'} "
+            f"in {t_srs:.4f} s")
+        # (c) bench_add.py's path, the proof from the loaded key
+        table, pk, _, proof, path, _ = run_key_path(dev, "add", paillier_enc_add_test, add_input(),
+                                                   srs, key_dir, "shplonk")
+        fresh, t_fresh = timed(lambda: create_proof(pk, table, PHASE10_BLIND))
+        require(fresh == proof, "the add proof from the loaded key differs from the fresh key's")
+        other = table_fingerprint(table, MAIN_K, MAIN_LOOKUP_BITS, "gwc")
+        try:
+            load_proving_key(path, srs, expect_table_fp=other, device=dev)
+            refused = False
+        except ValueError:
+            refused = True
+        require(refused, "a load under another fingerprint did not raise")
+        log(f"    byte-identical to the fresh key's proof ({t_fresh:.4f} s); a load expecting "
+            "another fingerprint raised ValueError")
+        # (d) phase 5's circuit under GWC
+        table, pk, pk2, proof, _, _ = run_key_path(dev, "enc", paillier_enc_test, main_input(), srs,
+                                                   key_dir, "gwc")
+        bad = bytearray(proof)
+        bad[len(bad) // 2] ^= 1
+        require(not verify_proof(pk.vk, srs, bytes(bad)), "a tampered k=14 GWC proof verifies")
+        require(pk2.vk.multiopen == "gwc", "the loaded encryption key is not GWC")
+        log("    tampered copy rejected; the saved key loads back as gwc")
+    counts = read_counts()
+    log(f"  launches over (c) and (d): {counts}; {msm_calls.seen} MSM calls in "
+        f"{passes.seen} bucket passes")
+    loops = ("bucket_loop_lazy", "merge_lazy", "window_sums")
+    require(msm_calls.seen > 0 and all(counts[name] == passes.seen for name in loops),
+            "phase 10 did not launch each loop kernel once per bucket pass")
+    require(all(counts[name] == 0 for name in
+                ("g1_madd", "padd_mixed_packed_lazy", "padd_lazy", "g1_jadd")),
+            "phase 10 launched a K3, K5, K6 or K2 step")
+    require(counts["fixed_base_comb"] == int(srs_generated_here),
+            "phase 10's comb launches do not match where its SRS came from")
+    require(counts["mont_mul"] > 0, "phase 10 launched no K1")
+
+    names = [*loops, *(["fixed_base_comb"] if srs_generated_here else [])]
+    results = check_loop_kernels(cap.captured(*names), "phase 10's first MSM call", imad_per_s)
+    spec, a, b = k1_cap.args
+    out, ref = mulmod.mont_mul(spec, a, b), mulmod.mont_mul_plain(spec, a, b)
+    torch.cuda.synchronize()
+    require(torch.equal(out, ref), "mont_mul differs from its plain version on phase 10's operands")
+    results["mont_mul"] = {
+        "max_abs_err": max_abs_err([out], [ref]), "lanes": a.shape[1], "double_lanes": 0,
+        "ms": cuda_ms(lambda: mulmod.mont_mul(spec, a, b), 20),
+        "plain_ms": cuda_ms(lambda: mulmod.mont_mul_plain(spec, a, b), 3),
+        "device_ms": device_ms(lambda: mulmod.mont_mul(spec, a, b), 10, "mont_mul_kernel")}
+    log(f"  K1 on phase 10's widest operands ({a.shape[1]} lanes): equal to its plain version; "
+        f"kernel {results['mont_mul']['ms']} ms per call ({results['mont_mul']['device_ms']} ms "
+        f"on the device), plain {results['mont_mul']['plain_ms']} ms")
+    return [kernel_entry(name, results[name], counts[name],
+                         "phase 10, key save/load and GWC at k=14", imad_per_s)
+            for name in ("mont_mul", *names)]
+
+
 def bound(name: str, entry: dict, imad_per_s: float):
     """(bound_ms, bound_by) of one timed call of `name` (see WORK), or of
     the work an entry counted itself (`ops`, `bytes`)."""
@@ -1314,7 +1592,7 @@ def kernel_entry(name: str, r: dict, launches, where: str, imad_per_s: float) ->
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8", help="comma-separated phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,10", help="comma-separated phases to run")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
     t_start = time.monotonic()
@@ -1410,6 +1688,17 @@ def main() -> int:
     if 9 in phases:
         log(f"[9] BASELINE.json config 1: the {CONFIG1_ENC}-bit MockProver")
         run_config1(dev)
+    key_entries = []
+    if 10 in phases:
+        log("[10] GWC and instance columns at K=10; keys saved and loaded at k=14")
+        t10 = time.monotonic()
+        check_slice_fixture(dev, "slice_enc_k10_gwc.json", "gwc")
+        check_instance_fixture(dev)
+        params_dir = os.path.join(ROOT, "build", "chip_smoke_params")
+        if 5 not in phases:
+            shutil.rmtree(params_dir, ignore_errors=True)  # the SRS is generated here
+        key_entries = run_key_phase(dev, params_dir, 5 not in phases, imad_per_s)
+        log(f"  phase 10 took {time.monotonic() - t10:.1f} s")
     if {3, 5, 7} <= phases:
         for name in KERNELS:
             if name not in OFF_PATH:
@@ -1425,6 +1714,7 @@ def main() -> int:
     if mock_k1 is not None:
         kernels_line.append(kernel_entry("mont_mul", mock_k1, mock_k1["launches"],
                                          "phase 8, the MockProver", imad_per_s))
+    kernels_line.extend(key_entries)
     if kernels_line:
         print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

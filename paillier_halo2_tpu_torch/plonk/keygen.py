@@ -32,6 +32,9 @@ DELTA = pow(host.FR_GENERATOR, 1 << host.FR_TWO_ADICITY, P)
 
 EXTENDED_RATE_BITS = 2  # max constraint degree 4 -> extended domain 4n
 PERM_CHUNK = 2  # permutation columns per grand-product (degree 2+PERM_CHUNK)
+# Multi-open schemes: "shplonk" (BDFG20, two W points, the halo2-axiom
+# harness default) and "gwc" (GWC19, one W point per opening point).
+MULTIOPEN_SCHEMES = ("shplonk", "gwc")
 
 
 @dataclasses.dataclass
@@ -43,7 +46,7 @@ class VerifyingKey:
     n_perm_cols: int
     perm_chunks: list[list[int]]
     usable: int
-    multiopen: str = "shplonk"  # the only multi-open scheme of the port
+    multiopen: str = "shplonk"  # one of MULTIOPEN_SCHEMES; prover and verifier follow it
     num_instance: int = 0
     q_commits: list[ech.Point] = dataclasses.field(default_factory=list)
     fixed_const_commit: ech.Point = None
@@ -81,9 +84,33 @@ class ProvingKey:
         return self.vk.k
 
 
-def keygen(table: VirtualTable, k: int, lookup_bits: int, srs: SRS) -> ProvingKey:
+def check_multiopen(multiopen: str) -> None:
+    if multiopen not in MULTIOPEN_SCHEMES:
+        raise ValueError(f"multi-open scheme {multiopen!r} is not one of {MULTIOPEN_SCHEMES}")
+
+
+def permutation_powers(k: int, n_perm_cols: int) -> tuple[np.ndarray, np.ndarray]:
+    """(delta^j for j < n_perm_cols, omega^r for r < 2^k) as object ints:
+    cell (j, r) of the permutation's identity is delta^j * omega^r."""
+    n = 1 << k
+    omega_pows = [1] * n
+    w = host.root_of_unity(k)
+    for i in range(1, n):
+        omega_pows[i] = omega_pows[i - 1] * w % P
+    delta_pows = [1] * n_perm_cols
+    for j in range(1, n_perm_cols):
+        delta_pows[j] = delta_pows[j - 1] * DELTA % P
+    return np.array(delta_pows, dtype=object), np.array(omega_pows, dtype=object)
+
+
+def keygen(table: VirtualTable, k: int, lookup_bits: int, srs: SRS,
+           multiopen: str = "shplonk") -> ProvingKey:
+    """`multiopen` picks the scheme the key's proofs open with (the JAX
+    package reads PAILLIER_TPU_MULTIOPEN instead); the key lives on the
+    SRS's device."""
     from .prover import column_slab
 
+    check_multiopen(multiopen)
     timer = PhaseTimer("keygen")
     device = srs.device
     assert srs.k >= k
@@ -102,15 +129,7 @@ def keygen(table: VirtualTable, k: int, lookup_bits: int, srs: SRS) -> ProvingKe
     table_vals = np.zeros(n, dtype=object)
     table_vals[: 1 << lookup_bits] = np.arange(1 << lookup_bits).astype(object)
 
-    omega_pows = [1] * n
-    w = host.root_of_unity(k)
-    for i in range(1, n):
-        omega_pows[i] = omega_pows[i - 1] * w % P
-    delta_pows = [1] * n_perm_cols
-    for j in range(1, n_perm_cols):
-        delta_pows[j] = delta_pows[j - 1] * DELTA % P
-    omega_arr = np.array(omega_pows, dtype=object)
-    delta_arr = np.array(delta_pows, dtype=object)
+    delta_arr, omega_arr = permutation_powers(k, n_perm_cols)
     sigma_values = delta_arr[layout.sigma_col] * omega_arr[layout.sigma_row] % P
 
     active_vals = np.zeros(n, dtype=object)
@@ -161,6 +180,7 @@ def keygen(table: VirtualTable, k: int, lookup_bits: int, srs: SRS) -> ProvingKe
         n_perm_cols=n_perm_cols,
         perm_chunks=perm_chunks,
         usable=usable,
+        multiopen=multiopen,
         num_instance=layout.num_instance,
         q_commits=all_commits[:na],
         fixed_const_commit=all_commits[na],

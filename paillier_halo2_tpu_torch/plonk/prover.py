@@ -1,9 +1,10 @@
 """Proof creation — replacement for halo2-axiom's create_proof.
 
-Counterpart of `paillier_halo2_tpu/plonk/prover.py:1`, SHPLONK multi-open
-only. Per-column iNTT + MSM commitments, permuted lookups, grand products,
-the quotient on the extended coset, and the multi-open all run as batched
-limb-tensor arithmetic on the proving key's device; transcript hashing and
+Counterpart of `paillier_halo2_tpu/plonk/prover.py:1`, with the SHPLONK
+and the GWC multi-open (the proving key's `vk.multiopen`). Per-column iNTT +
+MSM commitments, permuted lookups, grand products, the quotient on the
+extended coset, and the multi-open all run as batched limb-tensor
+arithmetic on the proving key's device; transcript hashing and
 scalar plumbing run on the host. Proof bytes equal the JAX package's for the
 same SRS, circuit and blinding seed.
 
@@ -38,7 +39,7 @@ from ..ff import host
 from ..gadgets.context import VirtualTable
 from ..poly import ops
 from ..utils.trace import PhaseTimer
-from .keygen import DELTA, EXTENDED_RATE_BITS, ProvingKey
+from .keygen import DELTA, EXTENDED_RATE_BITS, ProvingKey, check_multiopen
 from .kzg import commit_many
 from .layout import instance_column, lookup_columns, witness_columns
 from .multiopen import KINDS, shplonk_groups
@@ -223,6 +224,7 @@ def create_proof(pk: ProvingKey, table: VirtualTable, blinding_seed: bytes | Non
 
 def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: bytes, _mark) -> bytes:
     vk = pk.vk
+    check_multiopen(vk.multiopen)
     dev = pk.srs.device
     k, n, usable = vk.k, vk.n, vk.usable
     k_ext = k + EXTENDED_RATE_BITS
@@ -515,18 +517,45 @@ def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: byte
         s = torch.cat([incl[:, 1:], zeros1], dim=1)
         return _mul(_mul(s, zinvrow), _mont([zinv], dev))
 
-    _shplonk_open(
-        pk, tr, opening_sets, all_evals, points, pw, pw_inv, zinvs, fold_slabbed,
-        syn_div_rows, n, na, nl, nz,
-        {
-            "adv": adv_coeffs, "lk": lk_coeffs, "q": pk.q_coeffs,
-            "fc": [pk.fixed_const_coeffs], "table": [pk.table_coeffs],
-            "sigma": pk.sigma_coeffs, "zp": zp_coeffs, "zl": zl_coeffs,
-            "ap": ap_coeffs, "sp": sp_coeffs, "t": t_pieces,
-        },
-    )
+    if vk.multiopen == "gwc":
+        _gwc_open(pk, tr, opening_sets, pw, pw_inv, zinvs, fold_slabbed)
+    else:
+        _shplonk_open(
+            pk, tr, opening_sets, all_evals, points, pw, pw_inv, zinvs, fold_slabbed,
+            syn_div_rows, n, na, nl, nz,
+            {
+                "adv": adv_coeffs, "lk": lk_coeffs, "q": pk.q_coeffs,
+                "fc": [pk.fixed_const_coeffs], "table": [pk.table_coeffs],
+                "sigma": pk.sigma_coeffs, "zp": zp_coeffs, "zl": zl_coeffs,
+                "ap": ap_coeffs, "sp": sp_coeffs, "t": t_pieces,
+            },
+        )
     _mark("multiopen done")
     return tr.finalize()
+
+
+def _gwc_open(pk, tr, opening_sets, pw, pw_inv, zinvs, fold_slabbed):
+    """GWC multi-open (`prover.py:990-1048`): each non-empty opening set
+    folded by powers of nu (first poly highest), then every W quotient in
+    one batched synthetic division, q_i = z^-(i+1) * suffix_sum(c_j z^j)_{i+1}
+    over the power rows, and the W points in one commit_many."""
+    dev = pw.device
+    nu = tr.squeeze_challenge()
+    acc_list, acc_rows = [], []
+    for si, (_, polys) in enumerate(opening_sets):
+        if not polys:
+            continue
+        m = len(polys)
+        nupow = _mont([pow(nu, m - 1 - i, P) for i in range(m)], dev)[:, :, None]
+        acc_list.append(fold_slabbed(polys, nupow))
+        acc_rows.append(si)
+    incl = ops._suffix_sum(_mul(torch.stack(acc_list, dim=1), pw[:, acc_rows]))
+    del acc_list
+    s = torch.cat([incl[..., 1:], torch.zeros_like(incl[..., :1])], dim=-1)
+    zinv_m = _mont([zinvs[si] for si in acc_rows], dev)[:, :, None]
+    wq = _mul(_mul(s, pw_inv[:, acc_rows]), zinv_m)
+    for pt in commit_many(pk.srs, [wq[:, i] for i in range(len(acc_rows))]):
+        tr.write_point(pt)
 
 
 def _shplonk_open(pk, tr, opening_sets, all_evals, points, pw, pw_inv, zinvs,

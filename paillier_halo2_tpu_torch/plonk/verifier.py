@@ -4,15 +4,16 @@ arithmetic: transcript replay, the quotient identity at the challenge point
 (closed forms for Lagrange/vanishing/id polynomials), and the final
 2-pairing KZG check. Constraint order MUST mirror prover.py exactly.
 
-Counterpart of `paillier_halo2_tpu/plonk/verifier.py:1`, SHPLONK only. It
-runs on the host, with the native engine's pairing when it builds.
+Counterpart of `paillier_halo2_tpu/plonk/verifier.py:1`, SHPLONK and GWC
+(the verifying key's `multiopen`). It runs on the host, with the native
+engine's pairing when it builds.
 """
 from __future__ import annotations
 
 from ..ec import host as ech
 from ..ec.pairing import pairing_check
 from ..ff import host
-from .keygen import DELTA, VerifyingKey
+from .keygen import DELTA, VerifyingKey, check_multiopen
 from .srs import SRS
 from .transcript import TranscriptReader
 
@@ -94,13 +95,44 @@ def _verify_shplonk(vk, srs, tr, commits, evals, points, na, nl, nz, npc, n_piec
     return pairing_check([(q_commit, srs.g2_tau), (ech.g1_neg(rhs), srs.g2_gen)])
 
 
+def _verify_gwc(srs, tr, sets, points):
+    """GWC verification — mirrors prover._gwc_open. `sets`: per opening
+    point, its (commitment, eval) pairs in the prover's fold order. Reads
+    one W per non-empty set; accepts iff
+    e(sum u^j W_j, [tau]_2) == e(sum u^j (z_j W_j + F_j - v_j G), [1]_2)."""
+    nu = tr.squeeze_challenge()
+    sets = [(key, pairs) for key, pairs in sets if pairs]
+    w_commits = [tr.read_point() for _ in sets]
+    u = tr.squeeze_challenge()
+    tr.assert_consumed()
+
+    lhs_pt = rhs_pt = None
+    upow = 1
+    for (key, pairs), wc in zip(sets, w_commits):
+        fj, vj = None, 0
+        for cm, e in pairs:
+            fj = ech.g1_add(ech.g1_mul(fj, nu) if fj else None, cm)
+            vj = (vj * nu + e) % P
+        term = ech.g1_add(ech.g1_mul(wc, points[key]), fj)
+        term = ech.g1_add(term, ech.g1_neg(ech.g1_mul(ech.G1, vj)))
+        lhs_pt = ech.g1_add(lhs_pt, ech.g1_mul(wc, upow))
+        rhs_pt = ech.g1_add(rhs_pt, ech.g1_mul(term, upow))
+        upow = upow * u % P
+    return pairing_check([(lhs_pt, srs.g2_tau), (ech.g1_neg(rhs_pt), srs.g2_gen)])
+
+
 def verify_proof(
     vk: VerifyingKey, srs: SRS, proof: bytes, instances: list[int] | None = None
 ) -> bool:
     """`instances`: the statement's public-input values (required iff the
     circuit exposes any — vk.num_instance == 1). The verifier re-derives the
     instance evaluation itself, so a proof only verifies against the exact
-    public values the prover committed to."""
+    public values the prover committed to. A key with an unknown multi-open
+    scheme, or a call without the instances its circuit exposes, raises
+    ValueError; a proof that fails any check returns False."""
+    check_multiopen(vk.multiopen)
+    if vk.num_instance and instances is None:
+        raise ValueError("circuit exposes public inputs; pass instances=")
     try:
         return _verify(vk, srs, proof, instances)
     except (ValueError, AssertionError):
@@ -115,10 +147,6 @@ def _verify(
     nz = len(vk.perm_chunks)
     npc = vk.n_perm_cols
     num_instance = vk.num_instance
-    if vk.multiopen != "shplonk":
-        raise ValueError(f"multi-open scheme {vk.multiopen!r} is not ported")
-    if num_instance and instances is None:
-        raise ValueError("circuit exposes public inputs; pass instances=")
     tr = TranscriptReader(proof)
     for c in vk.fixed_commitments():
         tr.common_point(c)
@@ -248,6 +276,19 @@ def _verify(
     if acc != t_eval * zh_x % P:
         return False
 
+    if vk.multiopen == "gwc":
+        return _verify_gwc(srs, tr, [
+            ("x", list(zip(
+                adv_commits + lk_commits + vk.q_commits
+                + [vk.fixed_const_commit, vk.table_commit] + vk.sigma_commits + zp_commits
+                + zl_commits + ap_commits + sp_commits + t_commits,
+                evx))),
+            ("wx", list(zip(adv_commits + zp_commits + zl_commits, evwx))),
+            ("w2x", list(zip(adv_commits, evw2x))),
+            ("w3x", list(zip(adv_commits, evw3x))),
+            ("winvx", list(zip(ap_commits, ap_winvx))),
+            ("wux", list(zip(zp_commits[: nz - 1], evwux))),
+        ], points)
     return _verify_shplonk(
         vk, srs, tr,
         {

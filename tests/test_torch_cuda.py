@@ -28,7 +28,15 @@ from paillier_halo2_tpu_torch.gadgets.range import RangeChip
 from paillier_halo2_tpu_torch.harness.circuits import PaillierEncryptionInput, paillier_enc_test
 from paillier_halo2_tpu_torch.mock import prover as mock
 from paillier_halo2_tpu_torch.msm.pippenger import msm_packed
+from paillier_halo2_tpu_torch.plonk.keygen import keygen
+from paillier_halo2_tpu_torch.plonk.prover import create_proof
+from paillier_halo2_tpu_torch.plonk.serialize import (
+    load_proving_key,
+    save_proving_key,
+    table_fingerprint,
+)
 from paillier_halo2_tpu_torch.plonk.srs import generate_srs
+from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
 
 pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parents[1]
@@ -394,3 +402,30 @@ def test_mock_prove_on_card_matches_host(dev, route):
     assert not want.satisfied and got.satisfied == want.satisfied
     for name in ("gate_failures", "lookup_failures", "copy_failures", "const_failures"):
         assert np.array_equal(getattr(got, name), getattr(want, name)), name
+
+
+def _k10_table(fx):
+    inp = PaillierEncryptionInput(enc_bits=fx["enc_bits"], limb_bits=fx["limb_bits"], **fx["inputs"])
+    ctx = Context()
+    paillier_enc_test(ctx, RangeChip(ctx, fx["lookup_bits"]), inp)
+    return ctx.finalize()
+
+
+@pytest.mark.parametrize("fixture,multiopen", [("slice_enc_k10.json", "shplonk"),
+                                               ("slice_enc_k10_gwc.json", "gwc")])
+def test_k10_proof_on_card_from_a_loaded_key_matches_fixture(dev, tmp_path, fixture, multiopen):
+    """keygen on the card, save, load back onto the card under the
+    fingerprint, prove with the loaded key: the proof equals the JAX
+    package's fixture for the scheme, and verifies."""
+    fx = json.loads((ROOT / "tests" / "torch_fixtures" / fixture).read_text())
+    table = _k10_table(fx)
+    srs = generate_srs(fx["k"], fx["srs_seed"].encode(), dev)
+    pk = keygen(table, fx["k"], fx["lookup_bits"], srs, multiopen=multiopen)
+    fp = table_fingerprint(table, fx["k"], fx["lookup_bits"], multiopen)
+    path = str(tmp_path / "pk.npz")
+    save_proving_key(pk, path, table_fp=fp)
+    pk2 = load_proving_key(path, srs, expect_table_fp=fp)
+    assert pk2.q_coeffs[0].device.type == "cuda" and pk2.vk.multiopen == multiopen
+    proof = create_proof(pk2, table, fx["blinding_seed"].encode())
+    assert proof.hex() == fx["proof_hex"]
+    assert verify_proof(pk.vk, srs, proof)

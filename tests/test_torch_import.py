@@ -20,6 +20,8 @@ from paillier_halo2_tpu_torch.harness.base_test import base_test
 from paillier_halo2_tpu_torch.mock import prover as mock
 from paillier_halo2_tpu_torch.msm import pippenger
 from paillier_halo2_tpu_torch.plonk import srs
+from paillier_halo2_tpu_torch.plonk.keygen import keygen
+from paillier_halo2_tpu_torch.plonk.serialize import load_proving_key, save_proving_key
 from paillier_halo2_tpu_torch.utils import kernels
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,7 +44,8 @@ if {every}:
             lambda ctx, rc: rc.range_check(ctx.load_witness([3, 9]), 4))
     assert out.mock.satisfied
 from paillier_halo2_tpu_torch.utils import kernels
-assert {{"paillier_halo2_tpu_torch.mock.prover", "paillier_halo2_tpu_torch.entry"}} <= set(names)
+assert {{"paillier_halo2_tpu_torch.mock.prover", "paillier_halo2_tpu_torch.entry",
+         "paillier_halo2_tpu_torch.plonk.serialize"}} <= set(names)
 assert len(names) > 40, names
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert "paillier_halo2_tpu" not in sys.modules
@@ -123,10 +126,14 @@ def _empty_table():
 
 
 @pytest.mark.parametrize("name", ["generate_srs", "read_or_create_srs", "msm", "bench_builder",
-                                  "mock_prove_torch", "mock_prove_chunked", "base_test_run", "entry"])
+                                  "mock_prove_torch", "mock_prove_chunked", "base_test_run", "entry",
+                                  "keygen_gwc", "save_proving_key", "load_proving_key"])
 def test_entry_points_default_to_the_card(name, tmp_path):
     """Called without a device, each entry point asks for the card and
-    raises where there is none; it never runs on the CPU instead."""
+    raises where there is none; it never runs on the CPU instead. keygen
+    and save_proving_key work on the SRS's device, and an SRS made without
+    a device is asked of the card; load_proving_key asks for the card
+    itself, even given an SRS on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default-device call would run")
     calls = {
@@ -139,6 +146,11 @@ def test_entry_points_default_to_the_card(name, tmp_path):
         "mock_prove_chunked": lambda: mock.mock_prove_chunked(_empty_table(), 3),
         "base_test_run": lambda: base_test().k(4).lookup_bits(3).run(lambda ctx, rc: None),
         "entry": entry,
+        "keygen_gwc": lambda: keygen(_empty_table(), 4, 3, srs.generate_srs(4), multiopen="gwc"),
+        "save_proving_key": lambda: save_proving_key(
+            keygen(_empty_table(), 4, 3, srs.generate_srs(4)), str(tmp_path / "pk.npz")),
+        "load_proving_key": lambda: load_proving_key(str(tmp_path / "pk.npz"),
+                                                     srs.generate_srs(4, device="cpu")),
     }
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         calls[name]()

@@ -1,17 +1,27 @@
-"""Write the slice fixture that the PyTorch port's proof is held against.
+"""Write the fixtures that the PyTorch port's proofs are held against.
 
 Runs the JAX reference package on the CPU through the main path at a small
-size: the K=10, lookup_bits=9, ENC=16/LIMB=8 Paillier encryption circuit,
-SRS seed b"plonk-test", blinding seed b"test-blind", SHPLONK multi-open. The
-circuit inputs come from `random.Random(SEED)`. It writes
-`tests/torch_fixtures/slice_enc_k10.json` with the inputs, the seeds, the
-verifying-key commitments and the proof bytes in hex.
+size, K=10, lookup_bits=9, ENC=16/LIMB=8, and writes one JSON file per
+fixture with the inputs, the seeds, the verifying-key commitments and the
+proof bytes in hex:
 
-Run from the repository root:
+- `slice`: `slice_enc_k10.json`, the Paillier encryption circuit with inputs
+  from `random.Random(10)`, SRS seed b"plonk-test", blinding seed
+  b"test-blind", SHPLONK multi-open;
+- `gwc`: `slice_enc_k10_gwc.json`, the same circuit and seeds under GWC
+  multi-open (PAILLIER_TPU_MULTIOPEN=gwc, set in this process only);
+- `instance`: `instance_enc_k10.json`, the statement of
+  `tests/test_instance.py` (inputs from `random.Random(23)`, n, g and the
+  ciphertext exposed as public inputs), the seed-b"" SRS, blinding seed
+  b"\x21" * 32, SHPLONK; it also holds the public values.
 
-    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_slice_fixture.py
+Run from the repository root, naming the fixtures to write (all three by
+default):
 
-On an 8-core x86 CPU it takes 4 to 5 minutes (252 s and 297 s in two runs).
+    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_slice_fixture.py gwc instance
+
+On an 8-core x86 CPU each takes 4 to 9 minutes (`slice`: 252 s and 297 s in
+two runs; `gwc` 498 s and `instance` 506 s, run side by side).
 """
 from __future__ import annotations
 
@@ -30,6 +40,11 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 from paillier_halo2_tpu.bignum.host import paillier_enc_native  # noqa: E402
+from paillier_halo2_tpu.gadgets import (  # noqa: E402
+    BigUintChip,
+    EncryptionPublicKeyAssigned,
+    PaillierChip,
+)
 from paillier_halo2_tpu.gadgets.context import Context  # noqa: E402
 from paillier_halo2_tpu.gadgets.range import RangeChip  # noqa: E402
 from paillier_halo2_tpu.harness.circuits import (  # noqa: E402
@@ -45,7 +60,7 @@ K, LOOKUP_BITS, ENC, LIMB = 10, 9, 16, 8
 SEED = 10
 SRS_SEED = b"plonk-test"
 BLIND_SEED = b"test-blind"
-OUT = os.path.join(HERE, "slice_enc_k10.json")
+INSTANCE_SEED, INSTANCE_BLIND = 23, b"\x21" * 32
 
 
 def circuit_input(seed: int = SEED) -> PaillierEncryptionInput:
@@ -62,27 +77,58 @@ def _pt(p):
     return None if p is None else ["%x" % p[0], "%x" % p[1]]
 
 
-def main() -> None:
-    t0 = time.monotonic()
-    inp = circuit_input()
+def instance_table(seed: int = INSTANCE_SEED):
+    """`tests/test_instance.py`'s statement: n, g and the ciphertext limbs
+    exposed as public inputs. Returns (inputs, table)."""
+    prng = random.Random(seed)
+    n = prng.getrandbits(ENC) | (1 << (ENC - 1)) | 1
+    g, m, r = (prng.getrandbits(ENC) for _ in range(3))
+    res = paillier_enc_native(n, g, m, r)
     ctx = Context()
-    paillier_enc_test(ctx, RangeChip(ctx, LOOKUP_BITS), inp)
-    table = ctx.finalize()
-    srs = generate_srs(K, seed=SRS_SEED)
-    pk = keygen(table, K, LOOKUP_BITS, srs)
-    proof = create_proof(pk, table, blinding_seed=BLIND_SEED)
-    ok = verify_proof(pk.vk, srs, proof)
-    assert ok, "reference proof does not verify"
+    bu = BigUintChip(RangeChip(ctx, LOOKUP_BITS), LIMB)
+    pc = PaillierChip.construct(bu, ENC)
+    n_a, g_a = bu.assign_integer(n, ENC), bu.assign_integer(g, ENC)
+    c = pc.encrypt(EncryptionPublicKeyAssigned(n_a, g_a), bu.assign_integer(m, ENC),
+                   bu.assign_integer(r, ENC))
+    res_a = bu.assign_integer(res, ENC * 2)
+    bu.assert_equal_fresh(c, res_a)
+    for cells in (n_a.limbs, g_a.limbs, res_a.limbs):
+        ctx.expose_public(cells)
+    return {"n": n, "g": g, "m": m, "r": r, "res": res}, ctx.finalize()
+
+
+def make(which: str) -> None:
+    t0 = time.monotonic()
+    if which == "instance":
+        inputs, table = instance_table()
+        input_seed, srs_seed, blind = INSTANCE_SEED, b"", INSTANCE_BLIND
+    else:
+        inp = circuit_input()
+        inputs = {key: getattr(inp, key) for key in ("n", "g", "m", "r", "res")}
+        ctx = Context()
+        paillier_enc_test(ctx, RangeChip(ctx, LOOKUP_BITS), inp)
+        table = ctx.finalize()
+        input_seed, srs_seed, blind = SEED, SRS_SEED, BLIND_SEED
+    if which == "gwc":
+        os.environ["PAILLIER_TPU_MULTIOPEN"] = "gwc"
+    try:
+        srs = generate_srs(K, seed=srs_seed)
+        pk = keygen(table, K, LOOKUP_BITS, srs)
+    finally:
+        os.environ.pop("PAILLIER_TPU_MULTIOPEN", None)
+    proof = create_proof(pk, table, blinding_seed=blind)
+    publics = table.public_values() if which == "instance" else None
+    assert verify_proof(pk.vk, srs, proof, instances=publics), "reference proof does not verify"
     vk = pk.vk
     out = {
         "k": K,
         "lookup_bits": LOOKUP_BITS,
         "enc_bits": ENC,
         "limb_bits": LIMB,
-        "input_seed": SEED,
-        "inputs": {key: getattr(inp, key) for key in ("n", "g", "m", "r", "res")},
-        "srs_seed": SRS_SEED.decode(),
-        "blinding_seed": BLIND_SEED.decode(),
+        "input_seed": input_seed,
+        "inputs": inputs,
+        "srs_seed": srs_seed.decode(),
+        "blinding_seed": blind.decode(),
         "multiopen": vk.multiopen,
         "n_rows": table.n_rows,
         "num_advice": vk.num_advice,
@@ -95,10 +141,25 @@ def main() -> None:
         },
         "proof_hex": proof.hex(),
     }
-    with open(OUT, "w") as fh:
+    if publics is not None:
+        out["num_instance"] = vk.num_instance
+        out["publics"] = publics
+    path = os.path.join(HERE, FIXTURES[which])
+    with open(path, "w") as fh:
         json.dump(out, fh, indent=1)
         fh.write("\n")
-    print(f"wrote {OUT}: {len(proof)} proof bytes, {time.monotonic() - t0:.1f} s")
+    print(f"wrote {path}: {len(proof)} proof bytes, {time.monotonic() - t0:.1f} s")
+
+
+FIXTURES = {"slice": "slice_enc_k10.json", "gwc": "slice_enc_k10_gwc.json",
+            "instance": "instance_enc_k10.json"}
+
+
+def main() -> None:
+    for which in sys.argv[1:] or list(FIXTURES):
+        if which not in FIXTURES:
+            raise SystemExit(f"unknown fixture {which!r}; choose from {sorted(FIXTURES)}")
+        make(which)
 
 
 if __name__ == "__main__":
