@@ -21,10 +21,11 @@ Phases:
 3. a 2^14-point MSM on the seed-b"" SRS equals
    `params_fixtures/bench_msm_expected_14.json` on both routes: signed
    windows (the bucket-loop, merge and window-sum kernels, one launch of
-   each and no K5, K6 or K2 step) and unsigned windows (K4 and K2's merge,
-   whose launches are counted here); the three loop kernels are held
-   against their plain versions on that MSM's lane table, accumulators and
-   buckets, and the comb kernel on that SRS's scalars, and timed;
+   each and no K5, K6 or K2 step) and unsigned windows (its bucket-loop
+   kernel, one launch and no K4 step, and K2's merge, whose launches are
+   counted here); the four loop kernels are held against their plain
+   versions on that MSM's lane tables, accumulators and buckets, and the
+   comb kernel on that SRS's scalars, and timed;
 4. the K=10 encryption proof, its commitments on the signed route, is
    byte-identical to the JAX package's fixture
    `tests/torch_fixtures/slice_enc_k10.json`, and the verifier accepts it and
@@ -46,7 +47,10 @@ Phases:
    signed route's window sums against their plain version, its bucket loop
    against the rounds composed of K5 step launches on the same lane table
    (one of those K5 launches against its plain version) and its merge
-   against the levels composed of K6 launches, and these kernels are timed;
+   against the levels composed of K6 launches, the unsigned route's bucket
+   loop against the rounds of K4 step launches (one of those against its
+   plain version), and these kernels are timed, with the unsigned loop's
+   serial floor (one block of the longest lanes alone);
 7. the lazy-mulmod entry (bench.py's `mulmod_lazy` phase): ten chained K7
    products over Fr at 2^20 lanes, equal after canonicalisation to the same
    chain through K1; K7's launches are counted here;
@@ -125,6 +129,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                 "paillier_halo2_tpu/ec/pallas_point.py:265"),
     "g1_madd_packed": ("paillier_halo2_tpu_torch/csrc/g1_add.cu",
                        "paillier_halo2_tpu/ec/pallas_point.py:309"),
+    "bucket_loop": ("paillier_halo2_tpu_torch/csrc/g1_add.cu",
+                    "paillier_halo2_tpu/ec/pallas_point.py:309"),
     "padd_mixed_packed_lazy": ("paillier_halo2_tpu_torch/csrc/g1_add_lazy.cu",
                                "paillier_halo2_tpu/ec/lazy_point.py:172"),
     "padd_lazy": ("paillier_halo2_tpu_torch/csrc/g1_add_lazy.cu",
@@ -141,11 +147,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                         "paillier_halo2_tpu/ec/pallas_point.py:265"),
 }
 # Where each kernel's launches are counted: the main path (phase 5) unless
-# named here. K3's, K5's and K6's one-step kernels are the JAX package's
-# counterparts and the references the comb, bucket-loop and merge kernels
-# are composed against; since those kernels they run on no path.
+# named here. K3's, K4's, K5's and K6's one-step kernels are the JAX
+# package's counterparts and the references the comb, bucket-loop and merge
+# kernels are composed against; since those kernels they run on no path.
 LAUNCH_PATH = {"g1_jadd": "phase 3, unsigned 2^14 MSM (sub-accumulator merge)",
-               "g1_madd_packed": "phase 3, unsigned 2^14 MSM",
+               "bucket_loop": "phase 3, unsigned 2^14 MSM",
+               "g1_madd_packed": "none (step kernel, held in phase 2)",
                "mont_mul_lazy": "phase 7, lazy-mulmod chain",
                "padd_mixed_packed_lazy": "none: off every path since the bucket-loop kernel",
                "g1_madd": "none: off every path since the comb kernel",
@@ -236,7 +243,8 @@ def device_ms(fn, iters: int, kernel: str):
 PROFILED = {  # kernel -> substring of its CUDA symbol in the profiler's rows
     "K1 mont_mul": "mont_mul_kernel", "K2 g1_jadd": "g1_jadd_kernel",
     "K3 g1_madd": "g1_madd_kernel<false, false>", "K3 g1_madd nodouble": "g1_madd_kernel<true, false>",
-    "K4 g1_madd_packed": "g1_madd_kernel<true, true>", "K5 padd_mixed_packed_lazy": "g1_madd_lazy_kernel",
+    "K4 g1_madd_packed": "g1_madd_kernel<true, true>", "K4 bucket loop": "g1_bucket_kernel",
+    "K5 padd_mixed_packed_lazy": "g1_madd_lazy_kernel",
     "K6 padd_lazy": "g1_jadd_lazy_kernel", "K7 mont_mul_lazy": "mont_mul_lazy_kernel",
     "K2 window sums": "g1_window_sums_kernel", "K5 bucket loop": "g1_bucket_lazy_kernel",
     "K6 merge": "g1_merge_lazy_kernel", "K3 comb": "g1_fixed_base_comb_kernel",
@@ -657,7 +665,7 @@ def window_adds(n_buckets: int) -> int:
 def loop_work(name: str, args) -> tuple[int, int]:
     """(multiply-adds, bytes) of one call of a loop kernel on `args`: each
     input read once, each output written once."""
-    from paillier_halo2_tpu_torch.ec import lazy_point as lp
+    from paillier_halo2_tpu_torch.ec import point_kernels as pk
 
     if name == "window_sums":
         rows, n_buckets = args[0].shape[1:]
@@ -674,11 +682,20 @@ def loop_work(name: str, args) -> tuple[int, int]:
         n = scalars.shape[1]
         return (IMAD_PER_PRODUCT * WORK["g1_madd"][0] * 32 * n,
                 table.numel() * 4 + table_inf.numel() + 32 * n + 96 * n)
-    packed, order, _, seg, count, sub, nsub = args[:7]
-    lane_rounds = int(lp._need(count.long(), sub.long(), nsub.long()).sum())
+    packed, order, seg, count, sub, nsub = loop_table(name, args)
+    lane_rounds = int(pk._need(count.long(), sub.long(), nsub.long()).sum())
     n_lanes = seg.shape[0]
-    nbytes = packed.numel() * 4 + order.numel() * 5 + n_lanes * (6 * 4 + 3 * 32)
-    return IMAD_PER_PRODUCT * WORK["padd_mixed_packed_lazy"][0] * lane_rounds, nbytes
+    order_bytes = order.numel() * (4 if name == "bucket_loop" else 5)  # and neg's bytes
+    nbytes = packed.numel() * 4 + order_bytes + n_lanes * (6 * 4 + 3 * 32)
+    step = "g1_madd_packed" if name == "bucket_loop" else "padd_mixed_packed_lazy"
+    return IMAD_PER_PRODUCT * WORK[step][0] * lane_rounds, nbytes
+
+
+def loop_table(name: str, args):
+    """(packed, order, seg, count, sub, nsub) of a bucket-loop call: the
+    unsigned loop's arguments have no `neg`."""
+    packed, order = args[:2]
+    return (packed, order, *args[2:6]) if name == "bucket_loop" else (packed, order, *args[3:7])
 
 
 def describe(name: str, args) -> str:
@@ -691,10 +708,11 @@ def describe(name: str, args) -> str:
         return f"{acc[0].shape[1]} accumulators ({blk} buckets of {n_buckets}), {adds} tree adds"
     if name == "fixed_base_comb":
         return f"{args[2].shape[1]} scalars x 32 windows"
-    from paillier_halo2_tpu_torch.ec import lazy_point as lp
+    from paillier_halo2_tpu_torch.ec import point_kernels as pk
 
-    need = lp._need(args[4].long(), args[5].long(), args[6].long())
-    return f"{args[3].shape[0]} lanes, {int(need.sum())} lane-rounds, at most {int(need.max())}"
+    _, _, seg, count, sub, nsub = loop_table(name, args)
+    need = pk._need(count.long(), sub.long(), nsub.long())
+    return f"{seg.shape[0]} lanes, {int(need.sum())} lane-rounds, at most {int(need.max())}"
 
 
 def _kernel_tables():
@@ -707,6 +725,10 @@ def _kernel_tables():
 
     return {
         "window_sums": (pk.window_sums, pk.window_sums_plain, "g1_window_sums_kernel", None),
+        "bucket_loop": (
+            pk.bucket_loop, pk.bucket_loop_plain, "g1_bucket_kernel",
+            (pk, "g1_madd_packed", "K4", lambda *a: pk.k4_rounds(pk.g1_madd_packed, *a),
+             pk.g1_madd_packed_plain, lambda a: a)),
         "bucket_loop_lazy": (
             lp.bucket_loop_lazy, lp.bucket_loop_lazy_plain, "g1_bucket_lazy_kernel",
             (lp, "padd_mixed_packed_lazy", "K5",
@@ -729,10 +751,10 @@ def check_loop_kernels(captured: dict, where: str, imad_per_s: float,
     """The loop kernels (window sums, bucket loop, merge, comb) on captured
     inputs, held against a reference and timed: with "plain" each against
     its plain version; with "steps" each that has one against its
-    composition of step launches (the bucket loop against K5's rounds, the
-    merge against K6's levels, the comb against 32 K3 launches), one of
-    those launches against the step's plain version, and the window sums
-    against their plain version. Returns results entries."""
+    composition of step launches (the bucket loops against K4's or K5's
+    rounds, the merge against K6's levels, the comb against 32 K3
+    launches), one of those launches against the step's plain version, and
+    the window sums against their plain version. Returns results entries."""
     import torch
 
     tables = _kernel_tables()
@@ -775,7 +797,7 @@ def check_loop_kernels(captured: dict, where: str, imad_per_s: float,
 
 class LoopCaptures:
     """While active, copies the arguments of the first call of each loop
-    kernel's wrapper: the comb, the bucket loop, the merge, the window sums."""
+    kernel's wrapper: the comb, the bucket loops, the merge, the window sums."""
 
     def __enter__(self):
         from paillier_halo2_tpu_torch.ec import lazy_point as lp
@@ -783,6 +805,7 @@ class LoopCaptures:
 
         self.calls = {"fixed_base_comb": CaptureCall(pk, "fixed_base_comb", 0),
                       "bucket_loop_lazy": CaptureCall(lp, "bucket_loop_lazy", 0),
+                      "bucket_loop": CaptureCall(pk, "bucket_loop", 0),
                       "merge_lazy": CaptureCall(lp, "merge_lazy", 0),
                       "window_sums": CaptureCall(pk, "window_sums", 0)}
         for c in self.calls.values():
@@ -845,8 +868,9 @@ def msm_fixture(k: int):
 
 def check_msm(dev, results: dict, imad_per_s: float) -> dict:
     """The 2^14 MSM on both routes, the loop kernels on the signed route's
-    inputs and the comb on its SRS's scalars; returns the launches of the
-    unsigned route's run, the one that runs K4 and K2's merge."""
+    inputs, the unsigned bucket loop on the unsigned route's and the comb on
+    its SRS's scalars; returns the launches of the unsigned route's run, the
+    one that runs its bucket loop and K2's merge."""
     import torch
 
     from paillier_halo2_tpu_torch.msm.pippenger import msm_packed
@@ -857,8 +881,10 @@ def check_msm(dev, results: dict, imad_per_s: float) -> dict:
         srs = generate_srs(k, b"", dev)
         sd = bench_scalars(k, dev)
         msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, sd, signed=True)
+        msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, sd, signed=False)
     torch.cuda.synchronize()
-    captured = cap.captured("fixed_base_comb", "bucket_loop_lazy", "merge_lazy", "window_sums")
+    captured = cap.captured("fixed_base_comb", "bucket_loop_lazy", "merge_lazy", "window_sums",
+                            "bucket_loop")
     want = msm_fixture(k)
     counts = {}
     for signed in (True, False):
@@ -875,11 +901,13 @@ def check_msm(dev, results: dict, imad_per_s: float) -> dict:
             "the signed route did not launch each loop kernel once")
     require(all(counts[True][name] == 0 for name in ("padd_mixed_packed_lazy", "padd_lazy", "g1_jadd")),
             "the signed route launched a K5, K6 or K2 step")
-    require(counts[False]["g1_madd_packed"] > 0 and counts[False]["g1_jadd"] > 0
+    require(counts[False]["bucket_loop"] == 1 and counts[False]["g1_jadd"] > 0
             and counts[False]["window_sums"] == 1,
-            "the unsigned route did not launch K4, K2's merge and the window sums")
-    results.update(check_loop_kernels(captured, "the 2^14 MSM's signed call and its SRS",
-                                      imad_per_s))
+            "the unsigned route did not launch its bucket loop once, K2's merge and the "
+            "window sums")
+    require(counts[False]["g1_madd_packed"] == 0, "the unsigned route launched a K4 step")
+    results.update(check_loop_kernels(captured, "the 2^14 MSM's calls (the bucket loop: "
+                                      "unsigned; the others: signed) and its SRS", imad_per_s))
     return counts[False]
 
 
@@ -1002,8 +1030,8 @@ def check_captured(name: str, kern, plain, args, flat_args) -> None:
 
 def run_msm_entry(dev, imad_per_s: float, k: int = 20) -> None:
     """bench.py's headline entry: MSM at 2^k points on both routes; the SRS's
-    comb and the signed route's loop kernels held against references on
-    their real inputs."""
+    comb and both routes' loop kernels held against references on their real
+    inputs; the unsigned bucket loop's serial floor timed."""
     import torch
 
     from paillier_halo2_tpu_torch.msm.pippenger import msm_packed
@@ -1037,7 +1065,7 @@ def run_msm_entry(dev, imad_per_s: float, k: int = 20) -> None:
                 f"2^{k} MSM ({route}) differs from params_fixtures/bench_msm_expected_{k}.json")
         shown = {name: counts[name] for name in
                  ("bucket_loop_lazy", "merge_lazy", "padd_mixed_packed_lazy", "padd_lazy",
-                  "g1_madd_packed", "g1_jadd", "window_sums")}
+                  "bucket_loop", "g1_madd_packed", "g1_jadd", "window_sums")}
         log(f"  MSM 2^{k} {route} (window {window_bits or 'signed default'}): equals the fixture; first "
             f"{t_first:.4f} s, warm {t_warm:.4f} s = {n / t_warm:.1f} points/s; "
             f"{stats['lanes']} bucket lanes, {stats['rounds']} rounds, {stats['lane_rounds']} "
@@ -1052,6 +1080,31 @@ def run_msm_entry(dev, imad_per_s: float, k: int = 20) -> None:
             check_loop_kernels({**srs_cap.captured("fixed_base_comb"),
                                 **cap.captured("window_sums", "bucket_loop_lazy", "merge_lazy")},
                                f"the 2^{k} MSM's signed call and its SRS", imad_per_s, "steps")
+        else:
+            require(counts["bucket_loop"] == 1 and counts["g1_madd_packed"] == 0,
+                    "the unsigned route did not run its bucket loop in one launch")
+            loop_args = cap.captured("bucket_loop")["bucket_loop"]
+            check_loop_kernels({"bucket_loop": loop_args}, f"the 2^{k} MSM's unsigned call",
+                               imad_per_s, "steps")
+            time_bucket_floor(loop_args)
+
+
+def time_bucket_floor(args) -> None:
+    """The unsigned bucket loop's serial floor on its lane table: one block
+    of the 128 longest lanes alone, whose time is the longest lane's adds
+    times one add's latency with its SM to itself."""
+    import torch
+
+    from paillier_halo2_tpu_torch.ec import point_kernels as pk
+
+    packed, order, seg, count, sub, nsub, win, _, n = args
+    m = 128
+    lone_args = (packed, order, *(t[:m].contiguous() for t in (seg, count, sub, nsub, win)),
+                 torch.arange(m, dtype=torch.int32, device=packed.device), n)
+    need = int(pk._need(count[:m].long(), sub[:m].long(), nsub[:m].long()).max())
+    lone = device_ms(lambda: pk.bucket_loop(*lone_args), 3, "g1_bucket_kernel")
+    log(f"    bucket loop serial floor: one block of the {m} longest lanes alone ({need} adds "
+        f"at most) {lone} ms on the device ({lone * 1e3 / need if lone else None} us an add)")
 
 
 def run_mulmod_lazy(dev, log_n: int = 20) -> dict:
@@ -1639,7 +1692,7 @@ def main() -> int:
     if 3 in phases:
         log("[3] MSM 2^14, signed and unsigned routes")
         unsigned = check_msm(dev, results, imad_per_s)
-        for name in ("g1_madd_packed", "g1_jadd"):
+        for name in ("g1_madd_packed", "bucket_loop", "g1_jadd"):
             launches[name] = unsigned[name]
     if 4 in phases:
         log("[4] K=10 slice against the JAX fixture")

@@ -6,6 +6,8 @@
 //   g1_jadd<nodouble>          -> K2 `padd_pallas` (:230, `_jacobian_add_full` :137-202)
 //   g1_madd<nodouble, false>   -> K3 `padd_mixed_pallas` (:265, `_mixed_add_full` :65-134)
 //   g1_madd<nodouble, true>    -> K4 `padd_mixed_packed_pallas` (:309, `_packed_kernel` :292-305)
+//   g1_bucket                  -> K4 under the `lax.while_loop` of the unsigned bucket loop
+//                                 (paillier_halo2_tpu/msm/pippenger.py:305-330, neg unset)
 //   g1_window_sums             -> K2's use in `_window_sums`
 //                                 (paillier_halo2_tpu/msm/pippenger.py:403-432)
 //   g1_fixed_base_comb         -> K3's use in the SRS comb `_fixed_base_msm_kernel`
@@ -314,6 +316,68 @@ __global__ void __launch_bounds__(kThreads, kCombMinBlocks)
   pht::store(oz, n, i, Z);
 }
 
+// The unsigned bucket loop: K4's nodouble step under the JAX package's
+// `while_loop`, which on the TPU is one K4 call a round with every lane's
+// accumulator through HBM and the row gathers around it as separate ops;
+// on this card such rounds are host-bound (1,029 of them at 2^20 points,
+// each about ten torch ops around one K4 launch). As g1_bucket_lazy_kernel
+// (g1_add_lazy.cu) does for the signed route, the loop moves inside the
+// thread: lane i (in need-sorted order) starts at infinity (one, one, 0),
+// adds the points order[win*n + seg + j] for j = sub, sub + nsub, ... <
+// count with madd<true> on canonical coordinates, prefetching the next row
+// during the current add, and writes column lane[i] of the (8, n_lanes)
+// outputs once. A round with j >= count is not taken: in the rounds, K4's
+// q_inf select leaves that lane's accumulator as it was, so every output
+// bit is the rounds'.
+// Bound: the multiply-adds, 11 products a lane-round, against 68 B of reads
+// a lane-round (row and order).
+//
+// One thread a lane, at most 128 registers a thread (4 blocks of 128 an SM),
+// as the signed loop. A persistent grid drawing 32-lane chunks of the
+// need-sorted table from one atomic counter gives the same bits but was
+// 45-50 % slower on an H100 at 2^20 points (PERF.md §6).
+constexpr int kLoopMinBlocks = 4;
+
+__global__ void __launch_bounds__(kThreads, kLoopMinBlocks)
+    g1_bucket_kernel(const uint4* __restrict__ rows, const int32_t* __restrict__ order,
+                     const int32_t* __restrict__ seg, const int32_t* __restrict__ count,
+                     const int32_t* __restrict__ sub, const int32_t* __restrict__ nsub,
+                     const int32_t* __restrict__ win, const int32_t* __restrict__ lane,
+                     uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                     uint32_t* __restrict__ oz, int64_t n_lanes, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_lanes) return;
+  const int64_t base = (int64_t)win[i] * n + seg[i];
+  const int c = count[i], step = nsub[i];
+  uint32_t X[L], Y[L], Z[L];
+  pht::set_one<F>(X);
+  pht::set_one<F>(Y);
+  pht::set_zero(Z);
+  uint4 w0, w1, w2, w3;
+  int j = sub[i];
+  if (j < c) {
+    const uint4* row = rows + (int64_t)order[base + j] * 4;
+    w0 = row[0], w1 = row[1], w2 = row[2], w3 = row[3];
+  }
+  for (; j < c; j += step) {
+    const uint32_t X2[L] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    const uint32_t Y2[L] = {w2.x, w2.y, w2.z, w2.w, w3.x, w3.y, w3.z, w3.w};
+    if (j + step < c) {
+      const uint4* row = rows + (int64_t)order[base + j + step] * 4;
+      w0 = row[0], w1 = row[1], w2 = row[2], w3 = row[3];
+    }
+    uint32_t X3[L], Y3[L], Z3[L];
+    madd<true>(X3, Y3, Z3, X, Y, Z, X2, Y2, false);
+    pht::copy(X, X3);
+    pht::copy(Y, Y3);
+    pht::copy(Z, Z3);
+  }
+  const int64_t o = lane[i];
+  pht::store(ox, n_lanes, o, X);
+  pht::store(oy, n_lanes, o, Y);
+  pht::store(oz, n_lanes, o, Z);
+}
+
 // Window sums, one block per row. Coordinates (8, rows, B) limb-first; the
 // outputs (8, rows). Shared memory: two buffers of 24 * B words, word k of
 // coordinate c of bucket b at [(c * 8 + k) * B + b].
@@ -451,6 +515,22 @@ extern "C" int pht_g1_fixed_base_comb(const void* table, const void* table_inf,
   g1_fixed_base_comb_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint4*)table, (const uint8_t*)table_inf, (const uint32_t*)scalars, (uint32_t*)ox,
       (uint32_t*)oy, (uint32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+// The unsigned bucket loop: rows (n, 16) uint32, 16-byte aligned; order
+// (W * n) int32 point indices by sorted position; seg, count, sub, nsub,
+// win, lane (n_lanes) int32, best sorted by need, descending; outputs (8,
+// n_lanes) canonical Jacobian.
+extern "C" int pht_g1_bucket(const void* rows, const void* order, const void* seg,
+                             const void* count, const void* sub, const void* nsub,
+                             const void* win, const void* lane, void* ox, void* oy, void* oz,
+                             long long n_lanes, long long n, void* stream) {
+  if (n_lanes <= 0) return 0;
+  g1_bucket_kernel<<<grid_for(n_lanes), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)rows, (const int32_t*)order, (const int32_t*)seg, (const int32_t*)count,
+      (const int32_t*)sub, (const int32_t*)nsub, (const int32_t*)win, (const int32_t*)lane,
+      (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n_lanes, n);
   return (int)cudaGetLastError();
 }
 

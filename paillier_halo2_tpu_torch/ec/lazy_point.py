@@ -17,7 +17,8 @@ Counterpart of `paillier_halo2_tpu/ec/lazy_point.py:1`:
   sub-accumulator merge, its canonicalisation, the capped windows' padding
   and the window-row order, in one launch;
 - `inf_acc`, `to_lazy_jp`, `canonicalize_jp` <- :243-270, the pipeline's
-  entry and exit.
+  entry and exit (`inf_acc` is `point_kernels.inf_acc`, which the bucket
+  rounds of both routes share).
 
 Accumulator coordinates are `(8, N)` int32 Fq limbs in Montgomery form with
 values in [0, 2p) (`ff/lazy_mont.py`); infinity is Z == 0 exactly, which
@@ -37,7 +38,8 @@ from ..ff import lazy_mont as lz
 from ..ff.field import is_zero as _is_zero
 from ..ff.limbs16 import M32, to_i32, u64
 from ..utils import kernels
-from .point_kernels import PACK_WORDS, SPEC, _check, _outputs, _sel, unpack_rows
+from .point_kernels import (PACK_WORDS, SPEC, _check, _outputs, _sel, bucket_rounds, inf_acc,
+                            unpack_rows)
 
 LAUNCHES = {"padd_mixed_packed_lazy": 0, "padd_lazy": 0, "bucket_loop_lazy": 0,
             "merge_lazy": 0}
@@ -118,42 +120,6 @@ def padd_lazy_plain(X1, Y1, Z1, X2, Y2, Z2):
     Y3 = _sel(q_inf, Y1, _sel(p_inf, Y2, Y3))
     Z3 = _sel(q_inf, Z1, _sel(p_inf, Z2, Z3))
     return X3, Y3, Z3
-
-
-def _need(count, sub, nsub):
-    """Additions a lane makes: j = sub, sub + nsub, ... < count."""
-    return torch.clamp(count - sub + nsub - 1, min=0) // nsub
-
-
-def bucket_rounds(step, packed, order, neg, seg, count, sub, nsub, win, lane, n: int):
-    """The bucket loop as gather-rounds, each round one call of `step`, a
-    mixed add `step(X, Y, Z, rows, mask_off, neg)` (K5's plain version, K5
-    itself, or K4 with neg=None): round r adds, on every lane that still has
-    a point, point order[win*n + seg + j] with j = sub + r*nsub, negated
-    where neg at that sorted position is set; accumulators start at infinity
-    (one, one, 0). The lanes must come sorted by need, descending, so round r
-    runs on a prefix of them. Returns (8, n_lanes) accumulators, lane i's in
-    column lane[i]."""
-    need = _need(count.long(), sub.long(), nsub.long())
-    if need.numel() > 1 and bool((need[1:] > need[:-1]).any()):
-        raise ValueError("bucket_rounds: lanes must be sorted by need, descending")
-    hist = torch.bincount(need).cpu().tolist()  # the one readback per call
-    active = [sum(hist[r + 1 :]) for r in range(len(hist) - 1)]
-    seg, count, sub, nsub, win, order = (x.long() for x in (seg, count, sub, nsub, win, order))
-    acc = inf_acc(seg.shape[0], packed.device)
-    for r, m in enumerate(active):
-        j = sub[:m] + r * nsub[:m]  # index within the bucket's sorted run
-        at = win[:m] * n + torch.clamp(seg[:m] + j, 0, n - 1)
-        rows = packed.index_select(0, order[at])  # (m, 16)
-        mask_off = j >= count[:m]
-        lanes = tuple(c[:, :m].contiguous() for c in acc)
-        out = step(*lanes, rows, mask_off, None if neg is None else neg[at])
-        for c, o in zip(acc, out):
-            c[:, :m] = o
-    placed = tuple(torch.empty_like(c) for c in acc)
-    for p, c in zip(placed, acc):
-        p[:, lane.long()] = c
-    return placed
 
 
 def bucket_loop_lazy_plain(packed, order, neg, seg, count, sub, nsub, win, lane, n: int):
@@ -343,12 +309,6 @@ def merge_lazy(acc, blocks, n_buckets: int):
 
 
 # -- the pipeline's entry and exit ------------------------------------------------
-
-
-def inf_acc(n: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """n fresh accumulators at infinity: (one, one, 0), as `inf_acc` (:243)."""
-    one = SPEC.limbs("one_mont", device)[:, None].expand(8, n).contiguous()
-    return one, one.clone(), torch.zeros((8, n), dtype=torch.int32, device=device)
 
 
 def to_lazy_jp(p):

@@ -7,6 +7,11 @@ Counterpart of `paillier_halo2_tpu/ec/pallas_point.py:1`:
 - `g1_madd`          <- `padd_mixed_pallas` (:265), Jacobian + affine (K3)
 - `g1_madd_packed`   <- `padd_mixed_packed_pallas` (:309), the affine operand
                         as packed `(N, 16)` rows (K4)
+- `bucket_loop`      <- K4 under the unsigned MSM's `lax.while_loop`
+                        (`paillier_halo2_tpu/msm/pippenger.py:305-330`): the
+                        whole bucket loop in one launch, each lane's adds in
+                        the rounds' order (`bucket_rounds` is that loop as
+                        rounds of one step each, K4's or K5's)
 - `window_sums`      <- K2's use in `_window_sums`
                         (`paillier_halo2_tpu/msm/pippenger.py:403-432`): the
                         MSM's bucket weighting, one launch for every row
@@ -33,8 +38,8 @@ from ..utils import kernels
 
 SPEC = f.FQ
 PACK_WORDS = 16  # 8 limbs of X, then 8 of Y
-LAUNCHES = {"g1_jadd": 0, "g1_madd": 0, "g1_madd_packed": 0, "window_sums": 0,
-            "fixed_base_comb": 0}
+LAUNCHES = {"g1_jadd": 0, "g1_madd": 0, "g1_madd_packed": 0, "bucket_loop": 0,
+            "window_sums": 0, "fixed_base_comb": 0}
 WINDOW_MAX_BUCKETS = 1210  # two buffers of B points in a block's shared memory
 COMB_WINDOWS, COMB_ENTRIES = 32, 256  # 8-bit windows of a 256-bit scalar
 
@@ -82,6 +87,13 @@ def _dbl_plain(X1, Y1, Z1):
 def _one_zero(like):
     one = SPEC.limbs("one_mont", like.device)[:, None].expand_as(like)
     return one, torch.zeros_like(like)
+
+
+def inf_acc(n: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """n fresh accumulators at infinity: (one, one, 0), as `inf_acc`
+    (`paillier_halo2_tpu/ec/lazy_point.py:243`)."""
+    one = SPEC.limbs("one_mont", device)[:, None].expand(8, n).contiguous()
+    return one, one.clone(), torch.zeros((8, n), dtype=torch.int32, device=device)
 
 
 def g1_jadd_plain(X1, Y1, Z1, X2, Y2, Z2, nodouble: bool = False):
@@ -190,8 +202,7 @@ def comb_rounds(step, table, table_inf, scalars):
     * G; table_inf: (32 * 256,) bool; scalars: (8, N) standard-form limbs.
     Returns the (8, N) Jacobian sums."""
     n = scalars.shape[1]
-    one, zero = _one_zero(torch.empty((8, n), dtype=torch.int32, device=scalars.device))
-    acc = (one.contiguous(), one.contiguous(), zero)
+    acc = inf_acc(n, scalars.device)
     u = u64(scalars)
     for w in range(COMB_WINDOWS):
         idx = w * COMB_ENTRIES + ((u[w // 4] >> (8 * (w % 4))) & 0xFF)
@@ -204,6 +215,57 @@ def fixed_base_comb_plain(table, table_inf, scalars):
     """The SRS comb's function: `_fixed_base_msm_kernel` (JAX srs.py:90-112),
     `comb_rounds` on K3's plain version."""
     return comb_rounds(g1_madd_plain, table, table_inf, scalars)
+
+
+def _need(count, sub, nsub):
+    """Additions a lane makes: j = sub, sub + nsub, ... < count."""
+    return torch.clamp(count - sub + nsub - 1, min=0) // nsub
+
+
+def bucket_rounds(step, packed, order, neg, seg, count, sub, nsub, win, lane, n: int):
+    """The MSM's bucket loop as gather-rounds, each round one call of `step`,
+    a mixed add `step(X, Y, Z, rows, mask_off, neg)` (K4 nodouble with
+    neg=None, see `k4_rounds`; K5 or its plain version): round r adds, on
+    every lane that still has a point, point order[win*n + seg + j] with
+    j = sub + r*nsub, negated where neg at that sorted position is set;
+    accumulators start at infinity (one, one, 0). The lanes must come sorted
+    by need, descending, so round r runs on a prefix of them. Returns
+    (8, n_lanes) accumulators, lane i's in column lane[i]."""
+    need = _need(count.long(), sub.long(), nsub.long())
+    if need.numel() > 1 and bool((need[1:] > need[:-1]).any()):
+        raise ValueError("bucket_rounds: lanes must be sorted by need, descending")
+    hist = torch.bincount(need).cpu().tolist()  # the one readback per call
+    active = [sum(hist[r + 1 :]) for r in range(len(hist) - 1)]
+    seg, count, sub, nsub, win, order = (x.long() for x in (seg, count, sub, nsub, win, order))
+    acc = inf_acc(seg.shape[0], packed.device)
+    for r, m in enumerate(active):
+        j = sub[:m] + r * nsub[:m]  # index within the bucket's sorted run
+        at = win[:m] * n + torch.clamp(seg[:m] + j, 0, n - 1)
+        rows = packed.index_select(0, order[at])  # (m, 16)
+        mask_off = j >= count[:m]
+        lanes = tuple(c[:, :m].contiguous() for c in acc)
+        out = step(*lanes, rows, mask_off, None if neg is None else neg[at])
+        for c, o in zip(acc, out):
+            c[:, :m] = o
+    placed = tuple(torch.empty_like(c) for c in acc)
+    for p, c in zip(placed, acc):
+        p[:, lane.long()] = c
+    return placed
+
+
+def k4_rounds(madd, packed, order, seg, count, sub, nsub, win, lane, n: int):
+    """The unsigned MSM's bucket loop as `bucket_rounds` of
+    `madd(X, Y, Z, rows, q_inf, nodouble)` under nodouble: K4 itself or
+    its plain version."""
+    return bucket_rounds(lambda X, Y, Z, rows, off, _neg: madd(X, Y, Z, rows, off, True), packed,
+                         order, None, seg, count, sub, nsub, win, lane, n)
+
+
+def bucket_loop_plain(packed, order, seg, count, sub, nsub, win, lane, n: int):
+    """The unsigned bucket loop's function: the K4 rounds of the JAX
+    package's `while_loop` (`pippenger.py:305-330`, neg unset) on K4's
+    plain version."""
+    return k4_rounds(g1_madd_packed_plain, packed, order, seg, count, sub, nsub, win, lane, n)
 
 
 # -- wrappers ------------------------------------------------------------------
@@ -337,4 +399,33 @@ def fixed_base_comb(table, table_inf, scalars):
     )
     kernels.check(rc, "fixed_base_comb")
     LAUNCHES["fixed_base_comb"] += 1
+    return out
+
+
+def bucket_loop(packed, order, seg, count, sub, nsub, win, lane, n: int):
+    """The unsigned MSM's bucket loop in one launch (`bucket_loop_plain`).
+    packed: (n, 16) int32 rows, 16-byte aligned on the card; order: (W*n,)
+    int32 point indices by sorted position; seg, count, sub, nsub, win,
+    lane: (n_lanes,) int32 lane table, best sorted by need descending so a
+    warp's lanes finish together. Returns three (8, n_lanes) canonical
+    Jacobian accumulators, lane i's in column lane[i]."""
+    n_lanes = seg.shape[0] if seg.dim() == 1 else -1
+    m = order.shape[0] if order.dim() == 1 else -1
+    table = [(t, torch.int32, (n_lanes,)) for t in (seg, count, sub, nsub, win, lane)]
+    _check("bucket_loop", (), 0, packed.device,
+           [(packed, torch.int32, (n, PACK_WORDS)), (order, torch.int32, (m,))] + table)
+    if packed.device.type == "cpu":
+        return bucket_loop_plain(packed, order, seg, count, sub, nsub, win, lane, n)
+    if packed.data_ptr() % 16:
+        raise ValueError("bucket_loop: packed rows must be 16-byte aligned")
+    out = tuple(torch.empty((8, n_lanes), dtype=torch.int32, device=packed.device)
+                for _ in range(3))
+    if n_lanes == 0:
+        return out
+    rc = kernels.lib().pht_g1_bucket(
+        *(t.data_ptr() for t in (packed, order, seg, count, sub, nsub, win, lane)),
+        *(c.data_ptr() for c in out), n_lanes, n, kernels.stream_ptr(packed.device),
+    )
+    kernels.check(rc, "bucket_loop")
+    LAUNCHES["bucket_loop"] += 1
     return out

@@ -14,7 +14,8 @@ Counterpart of `paillier_halo2_tpu/msm/pippenger.py:1`:
   tree) (`:309-323`, `:347-369`, `:394-397`);
 - the unsigned route (`PAILLIER_TPU_LAZY=0` there, and its CPU route):
   window bits that divide 8, keys sliced straight out of the scalar limbs,
-  K4 under `nodouble` in the bucket loop and K2 `nodouble` in the merge.
+  K4 under `nodouble` in the bucket loop, the whole loop in one launch
+  (`ec/point_kernels.bucket_loop`), and K2 `nodouble` in the merge.
 
 Both then weight the buckets into window sums T_w = sum_b b * B_{w,b} with a
 Hillis-Steele suffix scan and reduction (one launch of the window-sum kernel
@@ -24,13 +25,12 @@ unsigned on a CPU tensor; `signed=` asks for either on either.
 
 Bucket accumulation sorts each window's keys; each (window, bucket,
 sub-accumulator) lane then adds every nsub-th point of its bucket's sorted
-run, read as a packed row (bases are distinct, hence `nodouble`). The
-signed route does that in one kernel launch, each lane looping over its own
-run. The unsigned route runs gather-rounds (`lazy_point.bucket_rounds`), as
-the JAX package's `lax.while_loop` does: round r gathers every lane's next
-point and adds it, at the cost of one host readback per call for the round
-count. Lanes are ordered by the number of additions they need, so round r
-runs on a prefix of the lanes and a loop kernel's warp finishes together.
+run, read as a packed row (bases are distinct, hence `nodouble`). Both
+routes do that in one kernel launch, each lane looping over its own run,
+where the JAX package's `lax.while_loop` gathers every lane's next point and
+adds it round by round (`point_kernels.bucket_rounds`, the plain versions'
+form). Lanes are ordered by the number of additions they need, so a loop
+kernel's warp finishes together.
 The sub-accumulators merge in a halving tree. Commitments are points, so the schedule changes no result.
 """
 from __future__ import annotations
@@ -58,10 +58,6 @@ def _keys_from_digits(scalar_limbs: torch.Tensor, window_bits: int) -> torch.Ten
     parts = [(u >> (window_bits * j)) & mask for j in range(32 // window_bits)]
     stacked = torch.stack(parts, dim=-2)  # (..., 8, per_limb, N)
     return stacked.reshape(scalar_limbs.shape[:-2] + (-1, scalar_limbs.shape[-1]))
-
-
-def _k4_step(X, Y, Z, rows, mask_off, _neg):
-    return bn254.padd_mixed_packed((X, Y, Z), rows, mask_off, nodouble=True)
 
 
 def default_schedule(device) -> tuple[int, int]:
@@ -154,11 +150,11 @@ def _bucket_accumulate(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...
                        bcaps: tuple[int, ...] | None = None, neg=None, stats=None):
     """Per-(window, bucket) sums. px/py: (8, N) affine Montgomery bases; p_inf:
     (N,) bool; keys: (W, N) keys in [0, n_buckets); neg: (W, N) bool
-    negation masks, which select the signed route (the bucket-loop and
-    merge kernels; else K4 and K2). bcaps[w] caps window w's bucket lanes
-    (its keys stay below it); the buckets above a cap are infinity. Returns
-    canonical Jacobian buckets, each coordinate (8, W, n_buckets). Bases
-    must be pairwise distinct."""
+    negation masks, which select the signed route (the lazy bucket-loop
+    and merge kernels; else K4's bucket loop and K2's merge). bcaps[w] caps
+    window w's bucket lanes (its keys stay below it); the buckets above a
+    cap are infinity. Returns canonical Jacobian buckets, each coordinate
+    (8, W, n_buckets). Bases must be pairwise distinct."""
     lazy = neg is not None
     device = px.device
     n = px.shape[1]
@@ -205,20 +201,21 @@ def _bucket_accumulate(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...
 
     # additions each lane makes; order lanes by it (round r is then a lane
     # prefix, and a warp's lanes of the loop kernel finish together)
-    need = lzp._need(counts_l, sub_map, nsub_map)
+    need = pk._need(counts_l, sub_map, nsub_map)
     perm = torch.argsort(need, descending=True, stable=True)
     if stats is not None:  # a host readback, for the counts only
         for key, v in (("lanes", n_lanes), ("rounds", int(need.max())),
                        ("lane_rounds", int(need.sum()))):
             stats[key] = stats.get(key, 0) + v
 
-    table = tuple(x[perm] for x in (seg_l, counts_l, sub_map, nsub_map, win_map))
-    if lazy:  # the whole loop in one launch, accumulators in lane order
+    # the whole loop in one launch, accumulators in lane order
+    table = tuple(x[perm].to(torch.int32) for x in (seg_l, counts_l, sub_map, nsub_map, win_map))
+    order32, lane32 = order_flat.to(torch.int32), perm.to(torch.int32)
+    if lazy:
         neg_sorted = torch.gather(neg, 1, order).reshape(-1)  # by sorted position
-        acc = lzp.bucket_loop_lazy(packed, order_flat.to(torch.int32), neg_sorted,
-                                   *(x.to(torch.int32) for x in table), perm.to(torch.int32), n)
-    else:  # gather-rounds of K4
-        acc = lzp.bucket_rounds(_k4_step, packed, order_flat, None, *table, perm, n)
+        acc = lzp.bucket_loop_lazy(packed, order32, neg_sorted, *table, lane32, n)
+    else:
+        acc = pk.bucket_loop(packed, order32, *table, lane32, n)
 
     # Merge each block's S sub-accumulators in a halving tree (S is a power
     # of two), pad capped windows' dead buckets with infinity, restore the

@@ -142,12 +142,15 @@ def test_msm_2e10_on_card_matches_fixture(dev):
     hi = rng.integers(0, 2**63, (4, 1 << 10), dtype=np.int64)
     scalars = [(int(x) | int(y) << 63 | int(z) << 126 | int(w) << 189) % ech.R
                for x, y, z, w in zip(*hi)]
-    counts = (mulmod.LAUNCHES["mont_mul"], pk.LAUNCHES["g1_jadd"], pk.LAUNCHES["g1_madd_packed"])
+    before = {**mulmod.LAUNCHES, **pk.LAUNCHES}
     got = msm_packed(srs.g1_px, srs.g1_py, srs.g1_inf, f.pack_ints(scalars, dev), signed=False)
     ex, ey = json.loads((ROOT / "params_fixtures" / "bench_msm_expected_10.json").read_text())
     assert got == (int(ex, 16), int(ey, 16))
-    after = (mulmod.LAUNCHES["mont_mul"], pk.LAUNCHES["g1_jadd"], pk.LAUNCHES["g1_madd_packed"])
-    assert all(b > a for a, b in zip(counts, after))
+    after = {**mulmod.LAUNCHES, **pk.LAUNCHES}
+    # the bucket loop in one launch, no K4 step; K2 levels in the merge
+    assert after["bucket_loop"] == before["bucket_loop"] + 1
+    assert after["g1_madd_packed"] == before["g1_madd_packed"]
+    assert after["g1_jadd"] > before["g1_jadd"] and after["mont_mul"] > before["mont_mul"]
 
 
 @pytest.mark.parametrize("spec", [f.FR, f.FQ], ids=["Fr", "Fq"])
@@ -275,7 +278,7 @@ def _loop_inputs(n: int, n_windows: int, n_buckets: int, subs: int, seed: int, d
     sub = torch.arange(subs).repeat(n_windows * n_buckets)
     nsub = torch.full_like(sub, subs)
     seg_l, cnt_l = seg[win, bkt], cnt[win, bkt]
-    perm = torch.argsort(lp._need(cnt_l, sub, nsub), descending=True, stable=True)
+    perm = torch.argsort(pk._need(cnt_l, sub, nsub), descending=True, stable=True)
     table = tuple(x[perm].to(torch.int32).to(dev) for x in (seg_l, cnt_l, sub, nsub, win))
     neg = torch.from_numpy(rng.random(n_windows * n) < 0.5).to(dev)
     return (packed, order.reshape(-1).to(torch.int32).to(dev), neg, *table,
@@ -300,6 +303,30 @@ def test_bucket_loop_kernel_matches_plain(dev, n, n_windows, n_buckets, subs):
     unaligned.copy_(args[0])
     with pytest.raises(ValueError, match="aligned"):
         lp.bucket_loop_lazy(unaligned, *args[1:])
+
+
+@pytest.mark.parametrize("n,n_windows,n_buckets,subs", [(1000, 3, 17, 4), (4099, 2, 33, 3)])
+def test_unsigned_bucket_loop_kernel_matches_plain(dev, n, n_windows, n_buckets, subs):
+    """The unsigned loop, with a ragged last block and bucket 0's empty
+    runs, against its plain version and against the rounds of K4 step
+    launches; an unaligned `packed` raises."""
+    full = _loop_inputs(n, n_windows, n_buckets, subs, n + 1, dev)
+    args = (full[0], full[1], *full[3:])  # no neg
+    assert args[2].shape[0] % 128 != 0
+    before = dict(pk.LAUNCHES)
+    out = pk.bucket_loop(*args)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["bucket_loop"] == before["bucket_loop"] + 1
+    assert pk.LAUNCHES["g1_madd_packed"] == before["g1_madd_packed"]
+    assert all(torch.equal(o, r) for o, r in zip(out, pk.bucket_loop_plain(*args)))
+    stepwise = pk.k4_rounds(pk.g1_madd_packed, *args)  # K4 step launches
+    assert pk.LAUNCHES["g1_madd_packed"] > before["g1_madd_packed"]
+    assert all(torch.equal(o, r) for o, r in zip(out, stepwise))
+    raw = torch.empty(args[0].numel() + 1, dtype=torch.int32, device=dev)
+    unaligned = raw[1:].view(args[0].shape)
+    unaligned.copy_(args[0])
+    with pytest.raises(ValueError, match="aligned"):
+        pk.bucket_loop(unaligned, *args[1:])
 
 
 def _comb_table(dev):

@@ -124,6 +124,36 @@ def test_kzg_commit_many(srs10):
     assert bn254.unpack_jacobian(bn254.pack_jacobian(bases[:3], "cpu")) == bases[:3]
 
 
+def test_unsigned_buckets_match_jax_bit_for_bit(srs10, monkeypatch):
+    """The unsigned route's buckets (the loop through `bucket_loop_plain`,
+    the merge through K2 nodouble) equal the JAX package's
+    `_bucket_accumulate` on its unsigned route in their canonical Jacobian
+    bits, which holds each lane's add order to the reference's: 200 SRS
+    bases, one flagged at infinity, the top 8 windows of width 4 at s_base
+    2 (the top window's buckets take s = 8), so lanes add several points
+    each and bucket 0 is empty."""
+    monkeypatch.setenv("PAILLIER_TPU_LAZY", "0")
+    n, c = 200, 4
+    rng = np.random.default_rng(8)
+    words = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+    scalars = [int.from_bytes(w.astype(np.uint32).tobytes(), "little") % ech.R for w in words]
+    px, py = (t[:, :n].contiguous() for t in (srs10.g1_px, srs10.g1_py))
+    pinf = srs10.g1_inf[:n].clone()
+    pinf[7] = True
+    keys = pip._keys_from_digits(f.pack_ints(scalars, "cpu"), c)[-8:]  # the top 8 windows
+    subs = pip._sub_schedule(64, c, 2, 16)[-8:]
+    assert subs[-1] == 8 and set(subs[:-1]) == {2}
+    stats = {}
+    got = pip._bucket_accumulate(px, py, pinf, keys, 1 << c, subs, stats=stats)
+    assert stats["rounds"] > 4 and stats["lane_rounds"] > 3 * stats["lanes"]
+    want = jpip._bucket_accumulate(
+        jnp.asarray(f.to_ref_digits(px)), jnp.asarray(f.to_ref_digits(py)),
+        jnp.asarray(pinf.numpy()), jnp.asarray(keys.numpy().astype(np.int32)), c, subs)
+    for t, j in zip(got, want):
+        assert np.array_equal(f.to_ref_digits(t), np.asarray(j, np.uint32))
+    assert bool((got[2][:, :, 0] == 0).all())  # bucket 0: infinity in every window
+
+
 # -- the signed route ------------------------------------------------------------
 
 

@@ -133,7 +133,7 @@ def _lane_table(n: int, seed: int):
     nsub = torch.full((16,), 2)
     seg_l, cnt_l = seg[win, bkt], cnt[win, bkt]
     cnt_l[bkt == 0] = 0  # bucket 0: empty runs
-    need = lp._need(cnt_l, sub, nsub)
+    need = pk._need(cnt_l, sub, nsub)
     perm = torch.argsort(need, descending=True, stable=True)
     table = tuple(x[perm].to(torch.int32) for x in (seg_l, cnt_l, sub, nsub, win))
     return order.reshape(-1).to(torch.int32), table, perm.to(torch.int32), need
@@ -162,6 +162,28 @@ def test_bucket_loop_plain_equals_stepwise_k5():
         assert all(torch.equal(o[:, col], a[:, 0]) for o, a in zip(out, acc))
 
 
+def test_unsigned_bucket_loop_plain_equals_stepwise_k4():
+    """The unsigned loop (`bucket_loop`, on the CPU its plain version) equals
+    K4's plain step under nodouble applied lane by lane, each lane's points
+    in run order, placed at the lane's unsorted column."""
+    n = 12
+    prng = random.Random(8)
+    pts = [ech.g1_mul(ech.G1, prng.randrange(1, ech.R)) for _ in range(n)]
+    px, py, _ = tb.pack_affine(pts, "cpu")
+    packed = tb.pack_points_dense(px, py)
+    order, table, lane, need = _lane_table(n, 9)
+    out = pk.bucket_loop(packed, order, *table, lane, n)
+    seg, cnt, sub, nsub, win = (t.tolist() for t in table)
+    assert int(need.max()) >= 2 and int((need == 0).sum()) >= 4
+    for i in range(len(seg)):
+        acc = lp.inf_acc(1, "cpu")
+        for j in range(sub[i], cnt[i], nsub[i]):
+            row = packed[order[win[i] * n + seg[i] + j].long()][None]
+            acc = pk.g1_madd_packed_plain(*acc, row, torch.tensor([False]), nodouble=True)
+        col = int(lane[i])
+        assert all(torch.equal(o[:, col], a[:, 0]) for o, a in zip(out, acc))
+
+
 def test_loop_wrappers_raise_on_inputs_they_do_not_take():
     n = 12
     packed = torch.zeros((n, 16), dtype=torch.int32)
@@ -179,6 +201,15 @@ def test_loop_wrappers_raise_on_inputs_they_do_not_take():
         lp.bucket_loop_lazy(packed, order, neg, *table[:4], table[4][:-1], lane, n)
     with pytest.raises(ValueError, match="sorted"):  # the rounds need lanes sorted by need
         lp.bucket_loop_lazy(packed, order, neg, *(t.flip(0) for t in table), lane.flip(0), n)
+    pk.bucket_loop(packed, order, *table, lane, n)
+    with pytest.raises(ValueError):
+        pk.bucket_loop(packed, order.to(torch.int64), *table, lane, n)
+    with pytest.raises(ValueError):
+        pk.bucket_loop(packed[:-1], order, *table, lane, n)
+    with pytest.raises(ValueError):
+        pk.bucket_loop(packed, order, *table[:4], table[4][:-1], lane, n)
+    with pytest.raises(ValueError, match="sorted"):
+        pk.bucket_loop(packed, order, *(t.flip(0) for t in table), lane.flip(0), n)
     b = tuple(torch.zeros((8, 2, 5), dtype=torch.int32) for _ in range(3))
     pk.window_sums(*b)
     with pytest.raises(TypeError):
