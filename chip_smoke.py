@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card and check it.
 
-    python3 chip_smoke.py                 # phases 1-8 and 10, as a release check
+    python3 chip_smoke.py                 # phases 1-8, 10 and 11, as a release check
     python3 chip_smoke.py --phases 1,2    # build the kernels and check them only
     python3 chip_smoke.py --phases 1,10   # proving keys saved and loaded, GWC, instances
+    python3 chip_smoke.py --phases 1,11   # the mesh layer and the distributed prover
     python3 chip_smoke.py --phases 1,9    # the 2048-bit MockProver (opt-in)
 
 Phases:
@@ -90,6 +91,28 @@ Phases:
    these launches are counted apart from phase 5's. The loop kernels are
    held against their plain versions on (c)'s first MSM call (and the comb
    on its SRS where it ran), K1 on the widest operands of (c) and (d).
+11. the mesh layer and the distributed prover on `make_mesh(4, "cuda:0")`
+   (one shard a card where the machine has two or more cards; the phase
+   prints how many cards the mesh spans): (a) the four-step NTT at k=14 and
+   at the main path's extended k, forward and inverse, bit-equal to
+   `poly/ntt.ntt`; (b) the sharded MSM at 2^14 and 2^20 on the seed-b"" SRS
+   with bench.py's scalars, equal to both fixtures, with one bucket loop and
+   one merge a shard, one K2 launch a tree level and one window-sum launch
+   a call, its warm seconds, points/s and device time printed beside the
+   unsharded signed route's, and K2 held against its plain version on the
+   2^20 call's first tree level; (c) phase 4's K=10 proof through
+   `keygen_sharded` and `create_proof_sharded`, byte-identical to the JAX
+   fixture and verified; (d) phase 5's circuit (k=14 ENC=128/LIMB=64)
+   through `keygen_sharded` and `create_proof_sharded` with a fixed
+   blinding seed: the verifying key's commitments equal single-device
+   keygen's, the proof bytes equal the single-device proof's, it verifies,
+   and the seconds of both and the peak device memory are printed; the
+   launches over the sharded keygen and proof must be one bucket loop and
+   one merge a shard, one window-sum launch and one K2 launch a tree level
+   per bucket pass, and no K3, K5 or K6 step; the loop kernels are held
+   against their plain versions on the first sharded call's first shard,
+   K2 on its first tree level, K1 on the widest operands; (e)
+   `entry.dryrun_multichip(8, device="cuda:0")` runs to its end.
 
 Not in the default set:
 
@@ -105,7 +128,8 @@ Before the last line it prints one JSON object with each kernel's launch
 count (over the path that runs it), error, times and bound; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Build outputs, the SRS cache and phase 10's keys go under `build/` in this
-checkout.
+checkout. Phase 11's shards on one card measure the cost of sharding, not
+scale-out.
 """
 from __future__ import annotations
 
@@ -197,6 +221,11 @@ CONFIG1_ENC, CONFIG1_HOST_BYTES = 2048, 32 << 30
 # lookup_bits are the main path's.
 ADD_ENC, ADD_LIMB, ADD_SEED = 128, 64, 141
 PHASE10_BLIND = b"chip-smoke phase 10"
+# Phase 11: shards of the mesh on one card (one shard a card where there are
+# two or more cards), and of the dry run.
+MESH_SHARDS, DRYRUN_SHARDS = 4, 8
+MESH_MSM_KS = (14, 20)  # the sharded MSM's sizes: the fixtures' (bench.py's 2^20)
+PHASE11_BLIND = b"chip-smoke phase 11"
 
 
 def log(msg: str) -> None:
@@ -999,15 +1028,16 @@ class CaptureCall:
 
     def __init__(self, module, name: str, index: int):
         self.module, self.name, self.index, self.seen, self.args = module, name, index, 0, None
+        self.kwargs = {}
 
     def __enter__(self):
         fn = self.orig = getattr(self.module, self.name)
 
-        def wrapped(*args):
+        def wrapped(*args, **kwargs):
             if self.seen == self.index:
-                self.args = _clone(args)
+                self.args, self.kwargs = _clone(args), dict(kwargs)
             self.seen += 1
-            return fn(*args)
+            return fn(*args, **kwargs)
 
         setattr(self.module, self.name, wrapped)
         return self
@@ -1620,6 +1650,268 @@ def run_key_phase(dev, params_dir: str, srs_generated_here: bool, imad_per_s: fl
             for name in ("mont_mul", *names)]
 
 
+# -- phase 11: the mesh layer and the distributed prover ------------------------------
+
+
+def phase11_mesh(dev):
+    """`make_mesh(MESH_SHARDS, "cuda:0")`, or one shard a card (a power of
+    two of them) where the machine has two or more cards."""
+    import torch
+
+    from paillier_halo2_tpu_torch.mesh.sharding import make_mesh
+
+    n = torch.cuda.device_count()
+    return make_mesh(1 << (n.bit_length() - 1), "cuda") if n >= 2 else make_mesh(MESH_SHARDS, dev)
+
+
+def tree_levels(mesh) -> int:
+    """K2 launches of one cross-shard reduction: halving levels, each axis."""
+    levels = 0
+    for m in mesh.shape:
+        while m > 1:
+            m, levels = (m + 1) // 2, levels + 1
+    return levels
+
+
+def random_fr(shape, dev, seed: int):
+    """Canonical Fr limb tensors (top limb below p's), from a seeded generator."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-2**31, 2**31, shape, generator=g, dtype=torch.int32, device=dev)
+    x[7] &= 0x0FFFFFFF
+    return x
+
+
+def check_mesh_ntt(mesh, dev) -> None:
+    """The four-step NTT at k=14 and at the main path's extended k, both
+    directions, bit-equal to `poly/ntt.ntt`, each timed beside it."""
+    import torch
+
+    from paillier_halo2_tpu_torch.mesh.ntt import ntt_natural
+    from paillier_halo2_tpu_torch.plonk.keygen import EXTENDED_RATE_BITS
+    from paillier_halo2_tpu_torch.poly.ntt import ntt
+
+    for k, batch in ((MAIN_K, 4), (MAIN_K + EXTENDED_RATE_BITS, 2)):
+        x = random_fr((8, batch, 1 << k), dev, k)
+        for inverse in (False, True):
+            got, want = ntt_natural(mesh, x, k, inverse), ntt(x, k, inverse)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want),
+                    f"the four-step NTT differs from the single-device NTT (k={k}, inverse={inverse})")
+            ms = cuda_ms(lambda: ntt_natural(mesh, x, k, inverse), 3)
+            single_ms = cuda_ms(lambda: ntt(x, k, inverse), 3)
+            log(f"  NTT k={k} x{batch} {'inverse' if inverse else 'forward'}: four-step over "
+                f"{mesh.size} shards equal to the single-device NTT; {ms} ms per call "
+                f"(single device {single_ms} ms)")
+
+
+def check_tree_k2(tree, where: str) -> dict:
+    """K2 on one captured tree level against its plain version, timed;
+    returns a results entry (the doubling lanes counted from the inputs)."""
+    import torch
+
+    from paillier_halo2_tpu_torch.ec import point_kernels as pk
+    from paillier_halo2_tpu_torch.ff import field as f
+
+    require(tree.args is not None, f"no K2 tree level was captured ({where})")
+    args, kw = tree.args, tree.kwargs
+    require(not kw.get("nodouble", False), "the cross-shard tree did not take the full add")
+    out, ref = pk.g1_jadd(*args, **kw), pk.g1_jadd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    require(all(torch.equal(o, r) for o, r in zip(out, ref)),
+            f"K2 differs from its plain version on the cross-shard tree ({where})")
+    X1, Y1, Z1, X2, Y2, Z2 = args
+    mul = lambda a, b: f.mont_mul(f.FQ, a, b)  # noqa: E731
+    z1z1, z2z2 = mul(Z1, Z1), mul(Z2, Z2)
+    finite = ~f.is_zero(Z1) & ~f.is_zero(Z2)
+    same = (f.is_zero(f.sub(f.FQ, mul(X1, z2z2), mul(X2, z1z1)))
+            & f.is_zero(f.sub(f.FQ, mul(Y1, mul(Z2, z2z2)), mul(Y2, mul(Z1, z1z1)))))
+    entry = {"max_abs_err": max_abs_err(out, ref), "lanes": X1.shape[1],
+             "double_lanes": int((finite & same).sum()),
+             "ms": cuda_ms(lambda: pk.g1_jadd(*args, **kw), 20),
+             "plain_ms": cuda_ms(lambda: pk.g1_jadd_plain(*args, **kw), 3),
+             "device_ms": device_ms(lambda: pk.g1_jadd(*args, **kw), 10, "g1_jadd_kernel<false>")}
+    log(f"    K2 on a tree level of {where} ({entry['lanes']} lanes, {entry['double_lanes']} "
+        f"doubling): equal to its plain version (max_abs_err {entry['max_abs_err']}); kernel "
+        f"{entry['ms']} ms per call ({entry['device_ms']} ms on the device), plain "
+        f"{entry['plain_ms']} ms")
+    return entry
+
+
+def check_mesh_msm(mesh, dev) -> None:
+    """The sharded MSM at 2^14 and 2^20 on the seed-b"" SRS with bench.py's
+    scalars, equal to the fixtures; its launches, warm time and device time
+    beside the unsharded signed route's in the same call; K2 held against
+    its plain version on the 2^20 call's first tree level."""
+    import torch
+
+    from paillier_halo2_tpu_torch.ec import point_kernels as pk
+    from paillier_halo2_tpu_torch.mesh.msm import msm_sharded
+    from paillier_halo2_tpu_torch.msm.pippenger import msm_packed
+    from paillier_halo2_tpu_torch.plonk.srs import generate_srs
+
+    shown = ("bucket_loop_lazy", "merge_lazy", "g1_jadd", "window_sums", "padd_mixed_packed_lazy",
+             "padd_lazy", "mont_mul")
+    for k in MESH_MSM_KS:
+        n = 1 << k
+        srs, t_srs = timed(lambda: generate_srs(k, b"", dev))
+        sd = bench_scalars(k, dev)
+        want = msm_fixture(k)
+        bases = (srs.g1_px, srs.g1_py, srs.g1_inf)
+        with CaptureCall(pk, "g1_jadd", 0) as tree:
+            first, t_first = timed(lambda: msm_sharded(mesh, *bases, sd))
+        for label, fn in (("sharded", lambda: msm_sharded(mesh, *bases, sd)),
+                          ("unsharded signed", lambda: msm_packed(*bases, sd, signed=True))):
+            zero_counts()
+            got, t_warm = timed(fn)
+            counts = read_counts()
+            require(got == want and first == want,
+                    f"2^{k} MSM ({label}) differs from params_fixtures/bench_msm_expected_{k}.json")
+            if label == "sharded":
+                require(counts["bucket_loop_lazy"] == counts["merge_lazy"] == mesh.size,
+                        "the sharded MSM did not run one bucket loop and one merge a shard")
+                require(counts["g1_jadd"] == tree_levels(mesh) and counts["window_sums"] == 1,
+                        "the sharded MSM did not reduce its shards in one K2 launch a tree level "
+                        "and sum its windows in one launch")
+                require(counts["padd_mixed_packed_lazy"] == counts["padd_lazy"] == 0,
+                        "the sharded MSM launched a K5 or K6 step")
+            log(f"  MSM 2^{k} {label} ({mesh.size} shards on {mesh.n_cards} card(s); SRS made in "
+                f"{t_srs:.3f} s): equals the fixture; first {t_first:.4f} s, warm {t_warm:.4f} s = "
+                f"{n / t_warm:.1f} points/s; launches {({name: counts[name] for name in shown})}")
+            log(f"    profile of another call: {profile_call(fn, t_warm)}")
+        if k == MESH_MSM_KS[-1]:
+            check_tree_k2(tree, f"the 2^{k} sharded MSM")
+
+
+def check_mesh_slice(mesh, dev) -> None:
+    """Phase 4's K=10 proof through `keygen_sharded` and
+    `create_proof_sharded`: byte-identical to the JAX fixture, verified."""
+    from paillier_halo2_tpu_torch.gadgets.context import Context
+    from paillier_halo2_tpu_torch.gadgets.range import RangeChip
+    from paillier_halo2_tpu_torch.harness.circuits import PaillierEncryptionInput, paillier_enc_test
+    from paillier_halo2_tpu_torch.mesh import msm as mesh_msm
+    from paillier_halo2_tpu_torch.plonk.distributed import create_proof_sharded, keygen_sharded
+    from paillier_halo2_tpu_torch.plonk.srs import generate_srs
+    from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
+
+    fx = torch_fixture("slice_enc_k10.json")
+    inp = PaillierEncryptionInput(enc_bits=fx["enc_bits"], limb_bits=fx["limb_bits"], **fx["inputs"])
+    ctx = Context()
+    paillier_enc_test(ctx, RangeChip(ctx, fx["lookup_bits"]), inp)
+    table = ctx.finalize()
+    srs = generate_srs(fx["k"], fx["srs_seed"].encode(), dev)
+    with CountCalls(mesh_msm, "msm_sharded_multi") as calls:
+        pk, t_kg = timed(lambda: keygen_sharded(mesh, table, fx["k"], fx["lookup_bits"], srs))
+        proof, t_pr = timed(lambda: create_proof_sharded(mesh, pk, table, fx["blinding_seed"].encode()))
+    require(calls.seen >= 5, f"the sharded K=10 prover ran the sharded MSM {calls.seen} times")
+    require(proof.hex() == fx["proof_hex"], "the sharded K=10 proof differs from slice_enc_k10.json")
+    require(verify_proof(pk.vk, srs, proof), "the sharded K=10 proof does not verify")
+    log(f"  K=10 proof over {mesh.size} shards: byte-identical to slice_enc_k10.json, verified; "
+        f"{calls.seen} sharded MSM calls; keygen {t_kg:.4f} s, proof {t_pr:.4f} s")
+
+
+def run_mesh_main_path(mesh, dev, params_dir: str, imad_per_s: float) -> list:
+    """Phase 5's circuit at full width through `keygen_sharded` and
+    `create_proof_sharded`: the verifying key and the proof bytes equal the
+    single-device ones with the same blinding seed, and the proof verifies.
+    Launches are counted over the sharded keygen and proof; the loop
+    kernels are held against their plain versions on the first sharded MSM
+    call's first shard, K2 on its first tree level, K1 on the widest
+    operands. Returns the kernels-line entries."""
+    import torch
+
+    from paillier_halo2_tpu_torch.ec import point_kernels as pk
+    from paillier_halo2_tpu_torch.ff import mulmod
+    from paillier_halo2_tpu_torch.gadgets.context import Context
+    from paillier_halo2_tpu_torch.gadgets.range import RangeChip
+    from paillier_halo2_tpu_torch.harness.circuits import paillier_enc_test
+    from paillier_halo2_tpu_torch.mesh import msm as mesh_msm
+    from paillier_halo2_tpu_torch.msm import pippenger
+    from paillier_halo2_tpu_torch.plonk.distributed import create_proof_sharded, keygen_sharded
+    from paillier_halo2_tpu_torch.plonk.keygen import keygen
+    from paillier_halo2_tpu_torch.plonk.prover import create_proof
+    from paillier_halo2_tpu_torch.plonk.srs import read_or_create_srs
+    from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
+
+    srs, t_srs = timed(lambda: read_or_create_srs(MAIN_K, device=dev, params_dir=params_dir))
+    ctx = Context()
+    paillier_enc_test(ctx, RangeChip(ctx, MAIN_LOOKUP_BITS), main_input())
+    table = ctx.finalize()
+    pk1, t_kg = timed(lambda: keygen(table, MAIN_K, MAIN_LOOKUP_BITS, srs))
+    proof, t_pr = timed(lambda: create_proof(pk1, table, PHASE11_BLIND))
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    with (LoopCaptures() as cap, CaptureCall(pk, "g1_jadd", 0) as tree,
+          CaptureLargest(mulmod, "mont_mul") as k1_cap,
+          CountCalls(mesh_msm, "msm_sharded_multi") as calls,
+          CountCalls(pippenger, "_signed_keys") as passes):
+        pk_s, t_kgs = timed(lambda: keygen_sharded(mesh, table, MAIN_K, MAIN_LOOKUP_BITS, srs))
+        proof_s, t_prs = timed(lambda: create_proof_sharded(mesh, pk_s, table, PHASE11_BLIND))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ok, t_verify = timed(lambda: verify_proof(pk_s.vk, srs, proof_s))
+    log(f"  k={MAIN_K} ENC={MAIN_ENC}/LIMB={MAIN_LIMB} ({table.n_rows} rows; SRS in {t_srs:.4f} "
+        f"s) over {mesh.size} shards on {mesh.n_cards} card(s): keygen {t_kgs:.4f} s (single "
+        f"device {t_kg:.4f} s), proof {t_prs:.4f} s (single device {t_pr:.4f} s), verify "
+        f"{t_verify:.4f} s, {len(proof_s)} bytes; peak device memory {peak:.3f} GiB over the "
+        f"sharded keygen and proof; {calls.seen} sharded MSM calls in {passes.seen} bucket passes")
+    log(f"  launches over the sharded keygen and proof: {counts}")
+    require(pk_s.vk.fixed_commitments() == pk1.vk.fixed_commitments(),
+            "the sharded verifying key's commitments differ from single-device keygen's")
+    require(proof_s == proof, "the sharded k=14 proof differs from the single-device proof")
+    require(ok, "the sharded k=14 proof does not verify")
+    loops = ("bucket_loop_lazy", "merge_lazy")
+    require(calls.seen > 0 and all(counts[name] == mesh.size * passes.seen for name in loops),
+            "the sharded prover did not run one bucket loop and one merge a shard per bucket pass")
+    require(counts["window_sums"] == passes.seen and
+            counts["g1_jadd"] == tree_levels(mesh) * passes.seen,
+            "the sharded prover did not sum windows once and reduce shards in one K2 launch a "
+            "tree level per bucket pass")
+    require(all(counts[name] == 0 for name in
+                ("g1_madd", "padd_mixed_packed_lazy", "padd_lazy", "fixed_base_comb")),
+            "the sharded prover launched a K3, K5 or K6 step or the comb")
+    require(counts["mont_mul"] > 0, "the sharded prover launched no K1")
+
+    where = f"phase 11's first sharded MSM call (shard 0 of {mesh.size})"
+    results = check_loop_kernels(cap.captured(*loops, "window_sums"), where, imad_per_s)
+    results["g1_jadd"] = check_tree_k2(tree, "phase 11's first sharded MSM call")
+    spec, a, b = k1_cap.args
+    out, ref = mulmod.mont_mul(spec, a, b), mulmod.mont_mul_plain(spec, a, b)
+    torch.cuda.synchronize()
+    require(torch.equal(out, ref), "mont_mul differs from its plain version on phase 11's operands")
+    results["mont_mul"] = {
+        "max_abs_err": max_abs_err([out], [ref]), "lanes": a.shape[1], "double_lanes": 0,
+        "ms": cuda_ms(lambda: mulmod.mont_mul(spec, a, b), 20),
+        "plain_ms": cuda_ms(lambda: mulmod.mont_mul_plain(spec, a, b), 3),
+        "device_ms": device_ms(lambda: mulmod.mont_mul(spec, a, b), 10, "mont_mul_kernel")}
+    log(f"  K1 on phase 11's widest operands ({a.shape[1]} lanes): equal to its plain version; "
+        f"kernel {results['mont_mul']['ms']} ms per call ({results['mont_mul']['device_ms']} ms "
+        f"on the device), plain {results['mont_mul']['plain_ms']} ms")
+    where = f"phase 11, the k=14 proof sharded over {mesh.size} shards"
+    return [kernel_entry(name, results[name], counts[name], where, imad_per_s)
+            for name in ("mont_mul", *loops, "window_sums", "g1_jadd")]
+
+
+def run_mesh_phase(dev, params_dir: str, srs_generated_here: bool, imad_per_s: float) -> list:
+    """Phase 11; returns the kernels-line entries of its main-path run."""
+    from paillier_halo2_tpu_torch.entry import dryrun_multichip
+
+    mesh = phase11_mesh(dev)
+    log(f"  mesh: {mesh.size} shards on {mesh.n_cards} card(s) "
+        f"({', '.join(str(d) for d in mesh.devices)})")
+    if srs_generated_here:
+        shutil.rmtree(params_dir, ignore_errors=True)  # the SRS is generated here
+    check_mesh_ntt(mesh, dev)
+    check_mesh_msm(mesh, dev)
+    check_mesh_slice(mesh, dev)
+    entries = run_mesh_main_path(mesh, dev, params_dir, imad_per_s)
+    _, t_dry = timed(lambda: dryrun_multichip(DRYRUN_SHARDS, device=str(dev)))
+    log(f"  entry.dryrun_multichip({DRYRUN_SHARDS}, device={str(dev)!r}) ran to its end in "
+        f"{t_dry:.3f} s")
+    return entries
+
+
 def bound(name: str, entry: dict, imad_per_s: float):
     """(bound_ms, bound_by) of one timed call of `name` (see WORK), or of
     the work an entry counted itself (`ops`, `bytes`)."""
@@ -1645,7 +1937,8 @@ def kernel_entry(name: str, r: dict, launches, where: str, imad_per_s: float) ->
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,10", help="comma-separated phases to run")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11",
+                    help="comma-separated phases to run")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
     t_start = time.monotonic()
@@ -1752,6 +2045,14 @@ def main() -> int:
             shutil.rmtree(params_dir, ignore_errors=True)  # the SRS is generated here
         key_entries = run_key_phase(dev, params_dir, 5 not in phases, imad_per_s)
         log(f"  phase 10 took {time.monotonic() - t10:.1f} s")
+    mesh_entries = []
+    if 11 in phases:
+        log("[11] the mesh and the distributed prover: four-step NTT, sharded MSM, "
+            f"K=10 and k={MAIN_K} proofs, dryrun_multichip({DRYRUN_SHARDS})")
+        t11 = time.monotonic()
+        params_dir = os.path.join(ROOT, "build", "chip_smoke_params")
+        mesh_entries = run_mesh_phase(dev, params_dir, not {5, 10} & phases, imad_per_s)
+        log(f"  phase 11 took {time.monotonic() - t11:.1f} s")
     if {3, 5, 7} <= phases:
         for name in KERNELS:
             if name not in OFF_PATH:
@@ -1768,6 +2069,7 @@ def main() -> int:
         kernels_line.append(kernel_entry("mont_mul", mock_k1, mock_k1["launches"],
                                          "phase 8, the MockProver", imad_per_s))
     kernels_line.extend(key_entries)
+    kernels_line.extend(mesh_entries)
     if kernels_line:
         print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -268,15 +268,7 @@ def msm_packed_multi(px, py, p_inf, scalars, window_bits: int | None = None,
     s_cap = d_cap if s_cap is None else s_cap
     if signed:
         c = window_bits or _signed_window_bits(n)
-        n_buckets = (1 << (c - 1)) + 1
-        if n_buckets > pk.WINDOW_MAX_BUCKETS:
-            raise ValueError(f"signed window bits {c}: {n_buckets} buckets a window, the "
-                             f"window-sum kernel's shared memory holds {pk.WINDOW_MAX_BUCKETS}")
-        if n and int(u64(scalars[:, N_LIMBS - 1]).max()) > ech.R >> 224:
-            raise ValueError("the signed MSM route needs scalars below r")
-        n_windows = -(-256 // c)
-        subs, bcaps = _sub_schedule_signed(n_windows, c, s_base)
-        group = max(1, MAX_LANES // _lanes_per_poly(subs, bcaps))
+        n_buckets, n_windows, subs, bcaps, group = _signed_plan(scalars, c, s_base)
         if n_polys > group:
             out = []
             for i in range(0, n_polys, group):
@@ -296,13 +288,33 @@ def msm_packed_multi(px, py, p_inf, scalars, window_bits: int | None = None,
         subs = _sub_schedule(n_windows, c, s_base, s_cap) * n_polys  # row = p*W + w
         buckets = _bucket_accumulate(px, py, p_inf, keys.reshape(n_polys * n_windows, n),
                                      n_buckets, subs, stats=stats)
-    tw = _window_sums(buckets, n_buckets)
-    pts = bn254.unpack_jacobian(tw)  # (P*W) window sums, poly-major
+    return _horner(_window_sums(buckets, n_buckets), n_polys, n_windows, c)
+
+
+def _signed_plan(scalars, c: int, s_base: int):
+    """The signed route's (n_buckets, n_windows, subs, bcaps, polys per
+    call) for c-bit windows; raises ValueError on a window the window-sum
+    kernel cannot hold and on a scalar not below r (see `msm_packed_multi`)."""
+    n_buckets = (1 << (c - 1)) + 1
+    if n_buckets > pk.WINDOW_MAX_BUCKETS:
+        raise ValueError(f"signed window bits {c}: {n_buckets} buckets a window, the "
+                         f"window-sum kernel's shared memory holds {pk.WINDOW_MAX_BUCKETS}")
+    if scalars.shape[2] and int(u64(scalars[:, N_LIMBS - 1]).max()) > ech.R >> 224:
+        raise ValueError("the signed MSM route needs scalars below r")
+    n_windows = -(-256 // c)
+    subs, bcaps = _sub_schedule_signed(n_windows, c, s_base)
+    return n_buckets, n_windows, subs, bcaps, max(1, MAX_LANES // _lanes_per_poly(subs, bcaps))
+
+
+def _horner(window_sums, n_polys: int, n_windows: int, shift: int) -> list[ech.Point]:
+    """Each poly's window sums (poly-major rows) combined on the host:
+    sum_w 2^(shift*w) T_w by Horner from the top window."""
+    pts = bn254.unpack_jacobian(window_sums)
     out = []
     for pi in range(n_polys):
         acc = None
         for p in reversed(pts[pi * n_windows : (pi + 1) * n_windows]):
-            for _ in range(c):
+            for _ in range(shift):
                 acc = ech.g1_double(acc)
             acc = ech.g1_add(acc, p)
         out.append(acc)

@@ -1,8 +1,11 @@
 """KZG polynomial commitments over the monomial SRS.
 
-Counterpart of `paillier_halo2_tpu/plonk/kzg.py:1`, without the mesh. The
-SRS tensors' device picks the engine, as the JAX package's
-`_use_native_backend()` does (`kzg.py:54-67, 116-117`):
+Counterpart of `paillier_halo2_tpu/plonk/kzg.py:1`. Inside
+`poly.ops.proving_mesh(mesh)`, a commitment whose width the mesh size d > 1
+divides takes the sharded MSM (`mesh/msm.py`) before anything else, on the
+CPU too, as `kzg.py:95-112` does. Otherwise the SRS tensors' device picks
+the engine, as the JAX package's `_use_native_backend()` does
+(`kzg.py:54-67, 116-117`):
 
 - on the card, the port's MSM (`msm/pippenger.py`), whose route follows the
   device too: signed windows through K5 and K6;
@@ -21,8 +24,11 @@ from .. import native
 from ..ec import bn254
 from ..ec import host as ech
 from ..ff import field as f
+from ..mesh import msm as mesh_msm
 from ..msm.pippenger import msm_packed_multi
+from ..poly import ops
 from .srs import SRS
+
 
 def commit(srs: SRS, coeffs_mont: torch.Tensor) -> ech.Point:
     """Commit to a polynomial given in Montgomery coefficient form (8, m)."""
@@ -71,9 +77,13 @@ def commit_many(srs: SRS, coeffs_list) -> list[ech.Point]:
     m = coeffs_list[0].shape[1]
     assert all(c.shape[1] == m for c in coeffs_list), "pad polys to equal width"
     assert m <= srs.n
-    if srs.device.type == "cpu":
+    mesh = ops.active_mesh()
+    sharded = mesh is not None and mesh.size > 1 and m % mesh.size == 0
+    if srs.device.type == "cpu" and not sharded:
         return _commit_many_native(srs, coeffs_list, m)
     stacked = f.from_mont(f.FR, torch.stack(coeffs_list, dim=1))  # (8, P, m)
     scalars = stacked.permute(1, 0, 2).contiguous()  # (P, 8, m)
     px, py, pinf = _srs_bases(srs, m)
+    if sharded:
+        return mesh_msm.msm_sharded_multi(mesh, px, py, pinf, scalars)
     return msm_packed_multi(px, py, pinf, scalars)

@@ -2,11 +2,17 @@
 coefficient/evaluation conversions, coset extension, evaluation, prefix
 products, batch inversion, synthetic division.
 
-Counterpart of `paillier_halo2_tpu/poly/ops.py:1`, without the mesh routing
-and without the CPU routing of NTTs to C++: on a CPU tensor the transforms
-run the port's own plain-torch NTT. All polynomials are (8, ..., n) int32
-Montgomery limb tensors, limb-first. Every function that creates a tensor
-takes the device explicitly.
+Counterpart of `paillier_halo2_tpu/poly/ops.py:1`, without the CPU routing
+of NTTs to C++: on a CPU tensor the transforms run the port's own
+plain-torch NTT. All polynomials are (8, ..., n) int32 Montgomery limb
+tensors, limb-first. Every function that creates a tensor takes the device
+explicitly.
+
+Inside `proving_mesh(mesh)` (the distributed prover, `plonk/distributed.py`)
+every transform of size n with d > 1 and d^2 | n runs as the four-step NTT
+over the mesh (`mesh/ntt.py`), and every commitment whose width d divides
+takes the sharded MSM (`plonk/kzg.py`); the prover's own tensors stay on
+`mesh.devices[0]`, as in `paillier_halo2_tpu/poly/ops.py:27-59`.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 
 from ..ff import field as f
 from ..ff import host
+from ..mesh.ntt import ntt_natural
 from .ntt import ntt
 
 SPEC = f.FR
@@ -31,6 +38,51 @@ def reset_transfer_counts() -> dict:
     prev = dict(TRANSFER_COUNTS)
     TRANSFER_COUNTS["h2d"] = TRANSFER_COUNTS["d2h"] = 0
     return prev
+
+
+# -- distributed execution -------------------------------------------------------
+
+_ACTIVE_MESH = None
+
+
+class proving_mesh:
+    """Context manager that routes the prover's NTTs and commitments over a
+    mesh: `with ops.proving_mesh(mesh): ...`."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        global _ACTIVE_MESH
+        self._prev = _ACTIVE_MESH
+        _ACTIVE_MESH = self.mesh
+        return self.mesh
+
+    def __exit__(self, *exc):
+        global _ACTIVE_MESH
+        _ACTIVE_MESH = self._prev
+        return False
+
+
+def active_mesh():
+    """The mesh of the innermost `proving_mesh`, or None."""
+    return _ACTIVE_MESH
+
+
+def _mesh_for(n: int):
+    """The active mesh, if a transform of size n can ride the four-step NTT."""
+    m = _ACTIVE_MESH
+    if m is None:
+        return None
+    d = m.size
+    return m if d > 1 and n % (d * d) == 0 else None
+
+
+def _ntt_any(x: torch.Tensor, k: int, inverse: bool) -> torch.Tensor:
+    mesh = _mesh_for(1 << k)
+    if mesh is not None:
+        return ntt_natural(mesh, x, k, inverse)
+    return ntt(x, k, inverse)
 
 
 # -- packing -------------------------------------------------------------------
@@ -88,11 +140,11 @@ def _mont_consts(vals: list[int], device) -> torch.Tensor:
 
 def coeffs_of(values: torch.Tensor, k: int) -> torch.Tensor:
     """Evaluations over H (natural order) -> coefficients."""
-    return ntt(values, k, inverse=True)
+    return _ntt_any(values, k, inverse=True)
 
 
 def values_of(coeffs: torch.Tensor, k: int) -> torch.Tensor:
-    return ntt(coeffs, k, inverse=False)
+    return _ntt_any(coeffs, k, inverse=False)
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,14 +177,14 @@ def extended_coset_evals(coeffs: torch.Tensor, k: int, k_ext: int) -> torch.Tens
         (N_LIMBS,) + batch + (1 << k_ext,), dtype=torch.int32, device=coeffs.device
     )
     padded[..., : 1 << k] = f.mont_mul(SPEC, coeffs, scale)
-    return ntt(padded, k_ext, inverse=False)
+    return _ntt_any(padded, k_ext, inverse=False)
 
 
 def coeffs_from_extended(evals_ext: torch.Tensor, k: int, k_ext: int) -> torch.Tensor:
     """Inverse of extended_coset_evals: coset evals -> coefficients (2^k_ext)."""
     batch = tuple(evals_ext.shape[1:-1])
     ones = (1,) * len(batch)
-    coeffs = ntt(evals_ext, k_ext, inverse=True)
+    coeffs = _ntt_any(evals_ext, k_ext, inverse=True)
     scale = _coset_unscale(k_ext, str(evals_ext.device)).reshape(
         (N_LIMBS,) + ones + (1 << k_ext,)
     )

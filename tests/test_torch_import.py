@@ -14,9 +14,10 @@ import pytest
 import torch
 
 from paillier_halo2_tpu_torch import native
-from paillier_halo2_tpu_torch.entry import entry
+from paillier_halo2_tpu_torch.entry import dryrun_multichip, entry
 from paillier_halo2_tpu_torch.gadgets.context import Context
 from paillier_halo2_tpu_torch.harness.base_test import base_test
+from paillier_halo2_tpu_torch.mesh.sharding import make_mesh
 from paillier_halo2_tpu_torch.mock import prover as mock
 from paillier_halo2_tpu_torch.msm import pippenger
 from paillier_halo2_tpu_torch.plonk import srs
@@ -34,7 +35,7 @@ if {every}:
     for name in names:
         importlib.import_module(name)
     # the MockProver's entry points run on the CPU without JAX too
-    from paillier_halo2_tpu_torch.entry import entry
+    from paillier_halo2_tpu_torch.entry import dryrun_multichip, entry
     from paillier_halo2_tpu_torch.harness.base_test import base_test
     import contextlib, io
     fn, args = entry(device="cpu")
@@ -45,7 +46,8 @@ if {every}:
     assert out.mock.satisfied
 from paillier_halo2_tpu_torch.utils import kernels
 assert {{"paillier_halo2_tpu_torch.mock.prover", "paillier_halo2_tpu_torch.entry",
-         "paillier_halo2_tpu_torch.plonk.serialize"}} <= set(names)
+         "paillier_halo2_tpu_torch.plonk.serialize", "paillier_halo2_tpu_torch.mesh.msm",
+         "paillier_halo2_tpu_torch.mesh.ntt", "paillier_halo2_tpu_torch.plonk.distributed"}} <= set(names)
 assert len(names) > 40, names
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert "paillier_halo2_tpu" not in sys.modules
@@ -127,7 +129,8 @@ def _empty_table():
 
 @pytest.mark.parametrize("name", ["generate_srs", "read_or_create_srs", "msm", "bench_builder",
                                   "mock_prove_torch", "mock_prove_chunked", "base_test_run", "entry",
-                                  "keygen_gwc", "save_proving_key", "load_proving_key"])
+                                  "keygen_gwc", "save_proving_key", "load_proving_key",
+                                  "make_mesh", "dryrun_multichip"])
 def test_entry_points_default_to_the_card(name, tmp_path):
     """Called without a device, each entry point asks for the card and
     raises where there is none; it never runs on the CPU instead. keygen
@@ -151,6 +154,8 @@ def test_entry_points_default_to_the_card(name, tmp_path):
             keygen(_empty_table(), 4, 3, srs.generate_srs(4)), str(tmp_path / "pk.npz")),
         "load_proving_key": lambda: load_proving_key(str(tmp_path / "pk.npz"),
                                                      srs.generate_srs(4, device="cpu")),
+        "make_mesh": lambda: make_mesh(1),
+        "dryrun_multichip": lambda: dryrun_multichip(2),
     }
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         calls[name]()

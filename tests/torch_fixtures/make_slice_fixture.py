@@ -13,9 +13,14 @@ proof bytes in hex:
 - `instance`: `instance_enc_k10.json`, the statement of
   `tests/test_instance.py` (inputs from `random.Random(23)`, n, g and the
   ciphertext exposed as public inputs), the seed-b"" SRS, blinding seed
-  b"\x21" * 32, SHPLONK; it also holds the public values.
+  b"\x21" * 32, SHPLONK; it also holds the public values;
+- `dist`: `dist_add_k10.json`, the circuit of `tests/test_distributed.py`'s
+  sharded-proof test: two Paillier additions (ENC=16/LIMB=8, inputs from
+  `random.Random(2024)` and `random.Random(2025)`) at K=10, lookup_bits=9,
+  the seed-b"" SRS, blinding seed b"dist-test", SHPLONK, proved on one
+  device (the distributed prover's bytes must equal these).
 
-Run from the repository root, naming the fixtures to write (all three by
+Run from the repository root, naming the fixtures to write (all four by
 default):
 
     JAX_PLATFORMS=cpu python tests/torch_fixtures/make_slice_fixture.py gwc instance
@@ -39,7 +44,7 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from paillier_halo2_tpu.bignum.host import paillier_enc_native  # noqa: E402
+from paillier_halo2_tpu.bignum.host import paillier_add_native, paillier_enc_native  # noqa: E402
 from paillier_halo2_tpu.gadgets import (  # noqa: E402
     BigUintChip,
     EncryptionPublicKeyAssigned,
@@ -48,7 +53,9 @@ from paillier_halo2_tpu.gadgets import (  # noqa: E402
 from paillier_halo2_tpu.gadgets.context import Context  # noqa: E402
 from paillier_halo2_tpu.gadgets.range import RangeChip  # noqa: E402
 from paillier_halo2_tpu.harness.circuits import (  # noqa: E402
+    PaillierAddCipherInput,
     PaillierEncryptionInput,
+    paillier_enc_add_test,
     paillier_enc_test,
 )
 from paillier_halo2_tpu.plonk.keygen import keygen  # noqa: E402
@@ -61,6 +68,7 @@ SEED = 10
 SRS_SEED = b"plonk-test"
 BLIND_SEED = b"test-blind"
 INSTANCE_SEED, INSTANCE_BLIND = 23, b"\x21" * 32
+DIST_SEED, DIST_BLIND = 2024, b"dist-test"
 
 
 def circuit_input(seed: int = SEED) -> PaillierEncryptionInput:
@@ -97,11 +105,31 @@ def instance_table(seed: int = INSTANCE_SEED):
     return {"n": n, "g": g, "m": m, "r": r, "res": res}, ctx.finalize()
 
 
+def add_table(seed: int = DIST_SEED):
+    """`tests/test_distributed.py::_add_table`: two Paillier additions, the
+    i-th from `random.Random(seed + i)`. Returns (inputs, table)."""
+    ctx = Context()
+    rc = RangeChip(ctx, LOOKUP_BITS)
+    inputs = []
+    for i in range(2):
+        rng = random.Random(seed + i)
+        n = rng.getrandbits(ENC) | (1 << (ENC - 1)) | 1
+        g, c1, c2 = (rng.getrandbits(ENC) for _ in range(3))
+        inp = PaillierAddCipherInput(limb_bits=LIMB, enc_bits=ENC, n=n, g=g, c1=c1, c2=c2,
+                                     res=paillier_add_native(n, c1, c2))
+        paillier_enc_add_test(ctx, rc, inp)
+        inputs.append({key: getattr(inp, key) for key in ("n", "g", "c1", "c2", "res")})
+    return inputs, ctx.finalize()
+
+
 def make(which: str) -> None:
     t0 = time.monotonic()
     if which == "instance":
         inputs, table = instance_table()
         input_seed, srs_seed, blind = INSTANCE_SEED, b"", INSTANCE_BLIND
+    elif which == "dist":
+        inputs, table = add_table()
+        input_seed, srs_seed, blind = DIST_SEED, b"", DIST_BLIND
     else:
         inp = circuit_input()
         inputs = {key: getattr(inp, key) for key in ("n", "g", "m", "r", "res")}
@@ -152,7 +180,7 @@ def make(which: str) -> None:
 
 
 FIXTURES = {"slice": "slice_enc_k10.json", "gwc": "slice_enc_k10_gwc.json",
-            "instance": "instance_enc_k10.json"}
+            "instance": "instance_enc_k10.json", "dist": "dist_add_k10.json"}
 
 
 def main() -> None:
