@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card and check it.
 
-    python3 chip_smoke.py                 # phases 1-8, 10 and 11, as a release check
+    python3 chip_smoke.py                 # phases 1-8 and 10-12, as a release check
     python3 chip_smoke.py --phases 1,2    # build the kernels and check them only
     python3 chip_smoke.py --phases 1,10   # proving keys saved and loaded, GWC, instances
     python3 chip_smoke.py --phases 1,11   # the mesh layer and the distributed prover
+    python3 chip_smoke.py --phases 1,12   # the bench entry points, k=17 proofs among them
     python3 chip_smoke.py --phases 1,9    # the 2048-bit MockProver (opt-in)
 
 Phases:
@@ -113,6 +114,28 @@ Phases:
    against their plain versions on the first sharded call's first shard,
    K2 on its first tree level, K1 on the widest operands; (e)
    `entry.dryrun_multichip(8, device="cuda:0")` runs to its end.
+12. the bench entry points (`paillier_halo2_tpu_torch/benches/`) as a user
+   calls them: (a) `bench_batch` at B=16, k=17, lookup_bits=16, ENC=128
+   (BASELINE.json config 4), its SRS made on the card: 6,890,664 rows, 53
+   advice columns and a 19,808-byte proof (`params_fixtures/batch16_k17.json`),
+   verified, a tampered copy rejected, synthesized by more than one pool
+   worker; over its SRS, keygen and proofs one comb launch, each loop kernel
+   once per bucket pass and no K3, K5, K6 or K2 step; the loop kernels held
+   against their plain versions on its first MSM call, the comb against K3's
+   steps on its SRS and K1 against its plain version on its widest operands;
+   (b) `bench_bigenc` at 512 bits, k=17: 9,271,869 rows, 71 advice columns,
+   24,992 bytes (`bigenc512_k17.json`), verified, a tampered copy rejected,
+   its launches as (a)'s without a comb; (c) `benches.bench` in a process
+   of its own: a line after every phase, the last with `msm_valid` and a
+   verified proof; (d) `bench_scaling` at 2^20 on up to 8 shards of one card
+   and a 2 x 4 mesh, every point equal to the unsharded MSM, one bucket loop
+   a shard, one K2 launch a tree level and one window-sum launch a call;
+   (e) `bench_add` at k=14 twice: 2,002 rows, 1 advice column, 1,152 bytes
+   (`bench_add_k14.json`), verified, the second run on the key the first
+   saved; (f) `profile_proof` at k=14 with 2 warm proofs, their marks and
+   transfers, and the last one's profiler trace. Synthesis, keygen, proof
+   and verify seconds and peak device memory are printed for (a) and (b),
+   and the device time by kernel of a third B=16 proof under torch.profiler.
 
 Not in the default set:
 
@@ -127,8 +150,8 @@ It needs a CUDA device and fails at once without one. Every failure raises.
 Before the last line it prints one JSON object with each kernel's launch
 count (over the path that runs it), error, times and bound; the last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
-Build outputs, the SRS cache and phase 10's keys go under `build/` in this
-checkout. Phase 11's shards on one card measure the cost of sharding, not
+Build outputs, the SRS caches, phases 10's and 12's keys and phase 12's
+traces go under `build/` in this checkout. Phase 11's shards on one card measure the cost of sharding, not
 scale-out.
 """
 from __future__ import annotations
@@ -226,6 +249,17 @@ PHASE10_BLIND = b"chip-smoke phase 10"
 MESH_SHARDS, DRYRUN_SHARDS = 4, 8
 MESH_MSM_KS = (14, 20)  # the sharded MSM's sizes: the fixtures' (bench.py's 2^20)
 PHASE11_BLIND = b"chip-smoke phase 11"
+# Phase 12: the bench entries at the reference runs' widths: `bench_batch.py
+# 16 17 16 128` (BASELINE.json config 4; 53 advice columns, HEAVY_RUNS.md,
+# where its fixture has no count) and `bench_bigenc.py 512 17`; `bench.py`
+# with its phases' lines; the scaling sweep at bench.py's MSM size over up
+# to 8 shards of one card; `profile_proof.py 14 2`.
+BATCH_B, BATCH_K, BATCH_ENC, BATCH_ADVICE_COLS = 16, 17, 128, 53
+BIGENC_ENC, BIGENC_K = 512, 17
+BENCH_BUDGET_S = 600
+BENCH_PHASES = ["start", "mulmod", "mulmod_lazy", "msm", "keygen", "proof_cold", "final"]
+SCALING_LOG2, SCALING_SHARDS = 20, 8
+PROFILE_REPS = 2
 
 
 def log(msg: str) -> None:
@@ -1912,6 +1946,217 @@ def run_mesh_phase(dev, params_dir: str, srs_generated_here: bool, imad_per_s: f
     return entries
 
 
+# -- phase 12: the bench entry points -------------------------------------------------
+
+
+def heavy_shape(name: str, advice_cols: int | None = None):
+    """(rows, advice columns, proof bytes) of a reference run's fixture in
+    `params_fixtures/`: its structural fields only."""
+    with open(os.path.join(ROOT, "params_fixtures", name)) as fh:
+        fx = json.load(fh)
+    return fx["rows"], fx.get("advice_cols", advice_cols), fx["proof_bytes"]
+
+
+def fresh_dir(name: str) -> str:
+    path = os.path.join(ROOT, "build", name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def check_heavy(label: str, out: dict, artifacts, shape) -> None:
+    """A k=17 bench's shape, verdict and a tampered copy; prints its times."""
+    from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
+
+    pk, srs, _, proof = artifacts
+    got = (out["rows"], out["advice_cols"], out["proof_bytes"])
+    require(got == shape, f"{label}: rows, advice columns and proof bytes {got}, want {shape}")
+    require(out["verified"], f"{label}: the proof does not verify")
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    require(not verify_proof(pk.vk, srs, bytes(bad)), f"{label}: a tampered proof verifies")
+    log(f"  {label}: {out['rows']} rows, {out['advice_cols']} advice columns, "
+        f"{out['proof_bytes']} bytes, verified, a tampered copy rejected; synthesis "
+        f"{out['synth_s']:.4f} s, keygen {out['keygen_s']:.4f} s, cold proof "
+        f"{out['proof_cold_s']:.4f} s, warm proof {out['proof_s']:.4f} s, verify "
+        f"{out['verify_s']:.4f} s; peak device memory {out['peak_device_bytes'] / 2**30:.3f} GiB")
+
+
+def counted_run(fn):
+    """fn() with every launch, MSM call and bucket pass counted and the
+    loop kernels' and K1's inputs captured; returns (fn(), counts, loop
+    captures, K1 capture, MSM calls, bucket passes)."""
+    import torch
+
+    from paillier_halo2_tpu_torch.ff import mulmod
+    from paillier_halo2_tpu_torch.msm import pippenger
+    from paillier_halo2_tpu_torch.plonk import kzg
+
+    torch.cuda.synchronize()
+    zero_counts()
+    with (LoopCaptures() as cap, CaptureLargest(mulmod, "mont_mul") as k1_cap,
+          CountCalls(kzg, "msm_packed_multi") as msm_calls,
+          CountCalls(pippenger, "_signed_keys") as passes):
+        out = fn()
+    return out, read_counts(), cap, k1_cap, msm_calls.seen, passes.seen
+
+
+def check_prover_launches(label: str, counts: dict, msm_calls: int, passes: int,
+                          combs: int) -> None:
+    loops = ("bucket_loop_lazy", "merge_lazy", "window_sums")
+    log(f"  launches over {label}: {counts}; {msm_calls} MSM calls in {passes} bucket passes")
+    require(msm_calls > 0 and all(counts[name] == passes for name in loops),
+            f"{label} did not launch each loop kernel once per bucket pass")
+    require(all(counts[name] == 0 for name in
+                ("g1_madd", "padd_mixed_packed_lazy", "padd_lazy", "g1_jadd")),
+            f"{label} launched a K3, K5, K6 or K2 step")
+    require(counts["fixed_base_comb"] == combs, f"{label}: {counts['fixed_base_comb']} comb "
+            f"launches, want {combs}")
+    require(counts["mont_mul"] > 0, f"{label} launched no K1")
+
+
+def check_k1_widest(k1_cap, where: str) -> dict:
+    """K1 on the widest operands a run gave it, against its plain version."""
+    import torch
+
+    from paillier_halo2_tpu_torch.ff import mulmod
+
+    spec, a, b = k1_cap.args
+    out, ref = mulmod.mont_mul(spec, a, b), mulmod.mont_mul_plain(spec, a, b)
+    torch.cuda.synchronize()
+    require(torch.equal(out, ref), f"mont_mul differs from its plain version on {where}")
+    entry = {"max_abs_err": max_abs_err([out], [ref]), "lanes": a.shape[1], "double_lanes": 0,
+             "ms": cuda_ms(lambda: mulmod.mont_mul(spec, a, b), 20),
+             "plain_ms": cuda_ms(lambda: mulmod.mont_mul_plain(spec, a, b), 3),
+             "device_ms": device_ms(lambda: mulmod.mont_mul(spec, a, b), 10, "mont_mul_kernel")}
+    log(f"  K1 on {where} ({a.shape[1]} lanes): equal to its plain version; kernel "
+        f"{entry['ms']} ms per call ({entry['device_ms']} ms on the device), plain "
+        f"{entry['plain_ms']} ms")
+    return entry
+
+
+def run_bench_subprocess(key_dir: str, params_dir: str) -> dict:
+    """`benches.bench` as a user runs it, in a process of its own; every
+    phase's line printed, the last with `msm_valid` and a verified proof."""
+    cmd = [sys.executable, "-m", "paillier_halo2_tpu_torch.benches.bench", "--budget-s",
+           str(BENCH_BUDGET_S), "--key-dir", key_dir, "--params-dir", params_dir]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=BENCH_BUDGET_S + 120)
+    wall = time.monotonic() - t0
+    for line in proc.stderr.splitlines():
+        log(f"    | {line}")
+    require(proc.returncode == 0, f"benches.bench exited {proc.returncode}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    phases = [x["last_phase_done"] for x in lines]
+    require(phases == BENCH_PHASES, f"benches.bench printed the phases {phases}, want {BENCH_PHASES}")
+    last = lines[-1]
+    log(f"  benches.bench ({wall:.1f} s): {json.dumps(last)}")
+    require(last.get("msm_valid") is True, "benches.bench: the MSM is not valid")
+    require(last.get("proof_verified") is True, "benches.bench: the proof does not verify")
+    return last
+
+
+def run_bench_phase(dev, imad_per_s: float) -> list:
+    """Phase 12; returns the kernels-line entries of (a)'s run."""
+    import torch
+
+    from paillier_halo2_tpu_torch.benches import (
+        bench_add,
+        bench_batch,
+        bench_bigenc,
+        bench_scaling,
+        profile_proof,
+    )
+    from paillier_halo2_tpu_torch.mesh.sharding import make_mesh, make_mesh_2d
+    from paillier_halo2_tpu_torch.plonk.prover import create_proof
+
+    device = str(dev)
+    params_17 = fresh_dir("chip_smoke_params_k17")  # (a) makes its SRS on the card
+    # (a) BASELINE config 4: B=16 encryptions at k=17
+    (out, artifacts), counts, cap, k1_cap, msm_calls, passes = counted_run(
+        lambda: bench_batch.run(BATCH_B, BATCH_K, BATCH_K - 1, BATCH_ENC, device,
+                                params_dir=params_17))
+    log(f"  (a) bench_batch {BATCH_B} {BATCH_K} {BATCH_K - 1} {BATCH_ENC}: "
+        f"{out['synth_workers']} pool workers")
+    check_heavy(f"B={BATCH_B} k={BATCH_K}", out, artifacts,
+                heavy_shape("batch16_k17.json", BATCH_ADVICE_COLS))
+    require(out["synth_workers"] > 1, "the batch was synthesized serially, not by the pool")
+    check_prover_launches("(a)'s SRS, keygen and proofs", counts, msm_calls, passes, 1)
+    names = ("bucket_loop_lazy", "merge_lazy", "window_sums")
+    results = check_loop_kernels(cap.captured(*names), "(a)'s first MSM call", imad_per_s)
+    # the comb at 2^17 against its 32 K3 step launches (its plain version
+    # takes 8x phase 5's 2^14 seconds)
+    check_loop_kernels(cap.captured("fixed_base_comb"), "(a)'s k=17 SRS", imad_per_s, "steps")
+    results["mont_mul"] = check_k1_widest(k1_cap, "(a)'s widest operands")
+    entries = [kernel_entry(name, results[name], counts[name],
+                            f"phase 12 (a), bench_batch B={BATCH_B} k={BATCH_K}", imad_per_s)
+               for name in ("mont_mul", *names)]
+    pk, _, table, _ = artifacts
+    log(f"    profile of a third proof: "
+        f"{profile_call(lambda: create_proof(pk, table), out['proof_s'])}")
+    del artifacts, pk, table, cap, k1_cap
+    torch.cuda.empty_cache()
+
+    # (b) the 512-bit encryption at k=17, on (a)'s SRS
+    (out, artifacts), counts, _, _, msm_calls, passes = counted_run(
+        lambda: bench_bigenc.run(BIGENC_ENC, BIGENC_K, device, params_dir=params_17))
+    check_heavy(f"{BIGENC_ENC}-bit k={BIGENC_K}", out, artifacts, heavy_shape("bigenc512_k17.json"))
+    check_prover_launches("(b)'s keygen and proofs", counts, msm_calls, passes, 0)
+    log(f"  (b) warm proof's transfers: h2d {out['h2d']}, d2h {out['d2h']}")
+    del artifacts
+    torch.cuda.empty_cache()
+
+    # (c) benches.bench in a process of its own
+    bench_params = fresh_dir("chip_smoke_bench_params")
+    run_bench_subprocess(fresh_dir("chip_smoke_bench_keys"), bench_params)
+
+    # (d) the scaling sweep at 2^20 on one card, on (c)'s SRS: each sharded
+    # call reduces its shards in one K2 launch a tree level
+    meshes = [make_mesh(1 << i, device) for i in range(SCALING_SHARDS.bit_length())]
+    meshes.append(make_mesh_2d(2, SCALING_SHARDS // 2, device))
+    t0 = time.monotonic()
+    out, counts, *_ = counted_run(
+        lambda: bench_scaling.run(SCALING_LOG2, device, SCALING_SHARDS, params_dir=bench_params))
+    require(out["all_equal"] and len(out["times_s"]) == len(meshes),
+            "bench_scaling did not run every point")
+    levels, bucket_loops = sum(tree_levels(m) for m in meshes), 1 + sum(m.size for m in meshes)
+    require(counts["g1_jadd"] == levels and counts["bucket_loop_lazy"] == bucket_loops
+            and counts["window_sums"] == len(meshes) + 1,
+            f"bench_scaling's launches {counts}: want {levels} K2 tree levels, {bucket_loops} "
+            f"bucket loops and {len(meshes) + 1} window sums")
+    log(f"  (d) bench_scaling 2^{SCALING_LOG2} ({time.monotonic() - t0:.1f} s): every point "
+        f"equals the unsharded MSM; {levels} K2 tree-level launches, {bucket_loops} bucket "
+        f"loops; {json.dumps(out)}")
+
+    # (e) the add circuit at k=14, twice: the second run loads the first's key
+    add_keys = fresh_dir("chip_smoke_add_keys")
+    params_14 = fresh_dir("chip_smoke_params_k14")
+    runs = [bench_add.run(MAIN_K, device, key_dir=add_keys, params_dir=params_14)[0]
+            for _ in range(2)]
+    for i, r in enumerate(runs):
+        got = (r["rows"], r["advice_cols"], r["proof_bytes"])
+        require(got == heavy_shape("bench_add_k14.json") and r["verified"],
+                f"bench_add run {i + 1}: {got}, verified {r['verified']}")
+        log(f"  (e) bench_add run {i + 1}: {json.dumps(r)}")
+    require(not runs[0]["keygen_cached"] and runs[1]["keygen_cached"],
+            "bench_add's second run did not load the key its first run saved")
+
+    # (f) the profile of the k=14 proof, the last warm proof traced
+    profile_dir = fresh_dir("chip_smoke_profile")
+    out = profile_proof.run(MAIN_K, PROFILE_REPS, device, profile_dir=profile_dir,
+                            params_dir=params_14)
+    require(out["verified"] and len(out["warm"]) == PROFILE_REPS
+            and all(w["marks"] for w in out["warm"]), "profile_proof did not report its marks")
+    traces = [os.path.join(d, f) for d, _, fs in os.walk(profile_dir) for f in fs]
+    require(len(traces) == 1, f"profile_proof wrote {len(traces)} traces, want 1")
+    warm = ", ".join(f"{w['proof_s']:.4f} s (h2d {w['h2d']}, d2h {w['d2h']})" for w in out["warm"])
+    log(f"  (f) profile_proof k={MAIN_K}: keygen {out['keygen_s']:.4f} s, cold "
+        f"{out['proof_cold_s']:.4f} s, warm {warm}; traces of "
+        f"{[os.path.getsize(t) for t in traces]} bytes")
+    return entries
+
+
 def bound(name: str, entry: dict, imad_per_s: float):
     """(bound_ms, bound_by) of one timed call of `name` (see WORK), or of
     the work an entry counted itself (`ops`, `bytes`)."""
@@ -1937,7 +2182,7 @@ def kernel_entry(name: str, r: dict, launches, where: str, imad_per_s: float) ->
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,12",
                     help="comma-separated phases to run")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -2053,6 +2298,14 @@ def main() -> int:
         params_dir = os.path.join(ROOT, "build", "chip_smoke_params")
         mesh_entries = run_mesh_phase(dev, params_dir, not {5, 10} & phases, imad_per_s)
         log(f"  phase 11 took {time.monotonic() - t11:.1f} s")
+    bench_entries = []
+    if 12 in phases:
+        log(f"[12] the bench entries: bench_batch {BATCH_B} {BATCH_K}, bench_bigenc {BIGENC_ENC} "
+            f"{BIGENC_K}, bench, bench_scaling 2^{SCALING_LOG2}, bench_add {MAIN_K} (twice), "
+            f"profile_proof {MAIN_K} {PROFILE_REPS}")
+        t12 = time.monotonic()
+        bench_entries = run_bench_phase(dev, imad_per_s)
+        log(f"  phase 12 took {time.monotonic() - t12:.1f} s")
     if {3, 5, 7} <= phases:
         for name in KERNELS:
             if name not in OFF_PATH:
@@ -2070,6 +2323,7 @@ def main() -> int:
                                          "phase 8, the MockProver", imad_per_s))
     kernels_line.extend(key_entries)
     kernels_line.extend(mesh_entries)
+    kernels_line.extend(bench_entries)
     if kernels_line:
         print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -268,12 +268,15 @@ def _synth_worker(idx):
 
 def _synth_worker_spawn(args):
     """Spawn-pool worker: fn ships via pickle (must be a top-level callable
-    or a functools.partial of one). The child is a FRESH interpreter — the
-    gadget layer is torch-free, so workers only import numpy."""
+    or a functools.partial of one). The child is a FRESH interpreter; the
+    gadget layer runs on host ints and touches no torch tensor. Returns
+    (the worker's pid, the instance's table)."""
+    import os
+
     fn, idx = args
     ctx = Context()
     fn(ctx, idx)
-    return ctx.finalize()
+    return os.getpid(), ctx.finalize()
 
 
 class SinglePhaseCoreManager:
@@ -304,7 +307,8 @@ class SinglePhaseCoreManager:
         return self._ctx.finalize()
 
     @staticmethod
-    def synth_parallel(fn, n_instances: int, n_workers: int | None = None) -> VirtualTable:
+    def synth_parallel(fn, n_instances: int, n_workers: int | None = None,
+                       stats: dict | None = None) -> VirtualTable:
         """Run fn(ctx, i) for i in range(n_instances) across SPAWN worker
         processes; merge the per-instance tables in instance order. Workers
         must not touch torch (pure host-int synthesis).
@@ -314,7 +318,11 @@ class SinglePhaseCoreManager:
         picklable (a top-level function or functools.partial of one);
         unpicklable closures run serially. The pool wait is bounded: on
         timeout the pool is torn down and synthesis runs serially in-process
-        — slower, never hung."""
+        — slower, never hung. A caller that must tell the two apart passes
+        `stats`: it receives `workers`, the number of distinct processes that
+        synthesized instances (1 when synthesis ran serially), and
+        `pool_error`, the repr of what stopped the pool (None if nothing
+        did)."""
         import multiprocessing as mp
         import os
 
@@ -329,7 +337,7 @@ class SinglePhaseCoreManager:
             except Exception:
                 n_workers = 1  # closure: cannot ship to spawn workers
         _synth_fn = fn
-        tables = None
+        tables, workers, pool_error = None, 1, None
         try:
             if n_workers > 1 and n_instances > 1:
                 pool = mp.get_context("spawn").Pool(n_workers)
@@ -337,9 +345,10 @@ class SinglePhaseCoreManager:
                     res = pool.map_async(
                         _synth_worker_spawn, [(fn, i) for i in range(n_instances)]
                     )
-                    tables = res.get(timeout=120 + 30 * n_instances)
-                except Exception:  # TimeoutError, pickling, worker crash
-                    tables = None
+                    pids, tables = zip(*res.get(timeout=120 + 30 * n_instances))
+                    workers = len(set(pids))
+                except Exception as e:  # TimeoutError, pickling, worker crash
+                    tables, pool_error = None, repr(e)
                 finally:
                     pool.terminate()
                     pool.join()
@@ -347,4 +356,6 @@ class SinglePhaseCoreManager:
                 tables = [_synth_worker(i) for i in range(n_instances)]
         finally:
             _synth_fn = None
+        if stats is not None:
+            stats.update(workers=workers, pool_error=pool_error)
         return merge_tables(tables)

@@ -38,7 +38,7 @@ from ..ff import field as f
 from ..ff import host
 from ..gadgets.context import VirtualTable
 from ..poly import ops
-from ..utils.trace import PhaseTimer
+from ..utils.trace import PhaseTimer, profile_section
 from .keygen import DELTA, EXTENDED_RATE_BITS, ProvingKey, check_multiopen
 from .kzg import commit_many
 from .layout import instance_column, lookup_columns, witness_columns
@@ -211,14 +211,16 @@ def _fused_lookups(k, k_ext, zl_ext, lk_stack, ap_stack, sp_stack, table_ext, l0
 
 
 def create_proof(pk: ProvingKey, table: VirtualTable, blinding_seed: bytes | None = None,
-                 timer: PhaseTimer | None = None) -> bytes:
+                 timer: PhaseTimer | None = None, profile_dir: str | None = None) -> bytes:
     """blinding_seed=None (the default) draws fresh randomness (os.urandom),
     so proofs are zero-knowledge; an explicit seed makes them deterministic
-    (fixtures, tests)."""
+    (fixtures, tests). With `profile_dir` the proof runs under
+    `profile_section("create_proof", profile_dir)`, which writes a trace
+    there."""
     if blinding_seed is None:
         blinding_seed = os.urandom(32)
     timer = timer or PhaseTimer("prover")
-    with torch.no_grad():
+    with torch.no_grad(), profile_section("create_proof", profile_dir):
         return _create_proof_inner(pk, table, blinding_seed, timer.mark)
 
 

@@ -14,6 +14,14 @@ import pytest
 import torch
 
 from paillier_halo2_tpu_torch import native
+from paillier_halo2_tpu_torch.benches import (
+    bench,
+    bench_add,
+    bench_batch,
+    bench_bigenc,
+    bench_scaling,
+    profile_proof,
+)
 from paillier_halo2_tpu_torch.entry import dryrun_multichip, entry
 from paillier_halo2_tpu_torch.gadgets.context import Context
 from paillier_halo2_tpu_torch.harness.base_test import base_test
@@ -47,7 +55,12 @@ if {every}:
 from paillier_halo2_tpu_torch.utils import kernels
 assert {{"paillier_halo2_tpu_torch.mock.prover", "paillier_halo2_tpu_torch.entry",
          "paillier_halo2_tpu_torch.plonk.serialize", "paillier_halo2_tpu_torch.mesh.msm",
-         "paillier_halo2_tpu_torch.mesh.ntt", "paillier_halo2_tpu_torch.plonk.distributed"}} <= set(names)
+         "paillier_halo2_tpu_torch.mesh.ntt", "paillier_halo2_tpu_torch.plonk.distributed",
+         "paillier_halo2_tpu_torch.utils.trace", "paillier_halo2_tpu_torch.benches.bench",
+         "paillier_halo2_tpu_torch.benches.bench_add", "paillier_halo2_tpu_torch.benches.bench_batch",
+         "paillier_halo2_tpu_torch.benches.bench_bigenc",
+         "paillier_halo2_tpu_torch.benches.bench_scaling",
+         "paillier_halo2_tpu_torch.benches.profile_proof"}} <= set(names)
 assert len(names) > 40, names
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert "paillier_halo2_tpu" not in sys.modules
@@ -130,7 +143,9 @@ def _empty_table():
 @pytest.mark.parametrize("name", ["generate_srs", "read_or_create_srs", "msm", "bench_builder",
                                   "mock_prove_torch", "mock_prove_chunked", "base_test_run", "entry",
                                   "keygen_gwc", "save_proving_key", "load_proving_key",
-                                  "make_mesh", "dryrun_multichip"])
+                                  "make_mesh", "dryrun_multichip", "bench", "bench_add",
+                                  "bench_batch", "bench_bigenc", "bench_scaling",
+                                  "profile_proof"])
 def test_entry_points_default_to_the_card(name, tmp_path):
     """Called without a device, each entry point asks for the card and
     raises where there is none; it never runs on the CPU instead. keygen
@@ -156,6 +171,13 @@ def test_entry_points_default_to_the_card(name, tmp_path):
                                                      srs.generate_srs(4, device="cpu")),
         "make_mesh": lambda: make_mesh(1),
         "dryrun_multichip": lambda: dryrun_multichip(2),
+        "bench": lambda: bench.main(["--params-dir", str(tmp_path), "--key-dir", str(tmp_path)]),
+        "bench_add": lambda: bench_add.main(["4", "--params-dir", str(tmp_path),
+                                             "--key-dir", str(tmp_path)]),
+        "bench_batch": lambda: bench_batch.main(["2", "4", "3", "8", "--params-dir", str(tmp_path)]),
+        "bench_bigenc": lambda: bench_bigenc.main(["8", "4", "--params-dir", str(tmp_path)]),
+        "bench_scaling": lambda: bench_scaling.main(["4", "--params-dir", str(tmp_path)]),
+        "profile_proof": lambda: profile_proof.main(["4", "1", "--params-dir", str(tmp_path)]),
     }
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         calls[name]()

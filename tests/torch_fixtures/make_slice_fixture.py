@@ -18,15 +18,21 @@ proof bytes in hex:
   sharded-proof test: two Paillier additions (ENC=16/LIMB=8, inputs from
   `random.Random(2024)` and `random.Random(2025)`) at K=10, lookup_bits=9,
   the seed-b"" SRS, blinding seed b"dist-test", SHPLONK, proved on one
-  device (the distributed prover's bytes must equal these).
+  device (the distributed prover's bytes must equal these);
+- `batch`: `batch_k10.json`, `bench_batch.py`'s batched circuit at B=2
+  (ENC=8/LIMB=4, which halves the CPU proof's columns against ENC=16;
+  instance i from `random.Random(1 + i)`, as its `synth_one`) merged by
+  `SinglePhaseCoreManager.synth_parallel`, K=10, lookup_bits=9, the
+  seed-b"" SRS, blinding seed b"batch-test", SHPLONK.
 
-Run from the repository root, naming the fixtures to write (all four by
+Run from the repository root, naming the fixtures to write (all five by
 default):
 
     JAX_PLATFORMS=cpu python tests/torch_fixtures/make_slice_fixture.py gwc instance
 
 On an 8-core x86 CPU each takes 4 to 9 minutes (`slice`: 252 s and 297 s in
-two runs; `gwc` 498 s and `instance` 506 s, run side by side).
+two runs; `gwc` 498 s and `instance` 506 s, run side by side; `batch` 321 s
+while another process shared the cores).
 """
 from __future__ import annotations
 
@@ -50,7 +56,7 @@ from paillier_halo2_tpu.gadgets import (  # noqa: E402
     EncryptionPublicKeyAssigned,
     PaillierChip,
 )
-from paillier_halo2_tpu.gadgets.context import Context  # noqa: E402
+from paillier_halo2_tpu.gadgets.context import Context, SinglePhaseCoreManager  # noqa: E402
 from paillier_halo2_tpu.gadgets.range import RangeChip  # noqa: E402
 from paillier_halo2_tpu.harness.circuits import (  # noqa: E402
     PaillierAddCipherInput,
@@ -69,6 +75,7 @@ SRS_SEED = b"plonk-test"
 BLIND_SEED = b"test-blind"
 INSTANCE_SEED, INSTANCE_BLIND = 23, b"\x21" * 32
 DIST_SEED, DIST_BLIND = 2024, b"dist-test"
+BATCH, BATCH_SEED, BATCH_BLIND, BATCH_ENC, BATCH_LIMB = 2, 1, b"batch-test", 8, 4
 
 
 def circuit_input(seed: int = SEED) -> PaillierEncryptionInput:
@@ -122,6 +129,29 @@ def add_table(seed: int = DIST_SEED):
     return inputs, ctx.finalize()
 
 
+def batch_one(ctx, i: int) -> None:
+    """`bench_batch.py:29-50`'s `synth_one` at the batch fixture's geometry:
+    the i-th encryption from `random.Random(BATCH_SEED + i)`."""
+    rng = random.Random(BATCH_SEED + i)
+    n = rng.getrandbits(BATCH_ENC) | (1 << (BATCH_ENC - 1)) | 1
+    g, m, r = (rng.getrandbits(BATCH_ENC) for _ in range(3))
+    inp = PaillierEncryptionInput(enc_bits=BATCH_ENC, limb_bits=BATCH_LIMB, n=n, g=g, m=m, r=r,
+                                  res=paillier_enc_native(n, g, m, r))
+    paillier_enc_test(ctx, RangeChip(ctx, LOOKUP_BITS), inp)
+
+
+def batch_table():
+    """The B=2 batched circuit, merged in instance order (serially: the
+    merge does not depend on the workers). Returns (inputs, table)."""
+    inputs = []
+    for i in range(BATCH):
+        rng = random.Random(BATCH_SEED + i)
+        n = rng.getrandbits(BATCH_ENC) | (1 << (BATCH_ENC - 1)) | 1
+        g, m, r = (rng.getrandbits(BATCH_ENC) for _ in range(3))
+        inputs.append({"n": n, "g": g, "m": m, "r": r, "res": paillier_enc_native(n, g, m, r)})
+    return inputs, SinglePhaseCoreManager.synth_parallel(batch_one, BATCH, n_workers=1)
+
+
 def make(which: str) -> None:
     t0 = time.monotonic()
     if which == "instance":
@@ -130,6 +160,9 @@ def make(which: str) -> None:
     elif which == "dist":
         inputs, table = add_table()
         input_seed, srs_seed, blind = DIST_SEED, b"", DIST_BLIND
+    elif which == "batch":
+        inputs, table = batch_table()
+        input_seed, srs_seed, blind = BATCH_SEED, b"", BATCH_BLIND
     else:
         inp = circuit_input()
         inputs = {key: getattr(inp, key) for key in ("n", "g", "m", "r", "res")}
@@ -151,8 +184,8 @@ def make(which: str) -> None:
     out = {
         "k": K,
         "lookup_bits": LOOKUP_BITS,
-        "enc_bits": ENC,
-        "limb_bits": LIMB,
+        "enc_bits": BATCH_ENC if which == "batch" else ENC,
+        "limb_bits": BATCH_LIMB if which == "batch" else LIMB,
         "input_seed": input_seed,
         "inputs": inputs,
         "srs_seed": srs_seed.decode(),
@@ -180,7 +213,8 @@ def make(which: str) -> None:
 
 
 FIXTURES = {"slice": "slice_enc_k10.json", "gwc": "slice_enc_k10_gwc.json",
-            "instance": "instance_enc_k10.json", "dist": "dist_add_k10.json"}
+            "instance": "instance_enc_k10.json", "dist": "dist_add_k10.json",
+            "batch": "batch_k10.json"}
 
 
 def main() -> None:
