@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA card and check it.
 
-    python3 chip_smoke.py                 # phases 1-8 and 10-12, as a release check
+    python3 chip_smoke.py                 # phases 1-8 and 10-13, as a release check
     python3 chip_smoke.py --phases 1,2    # build the kernels and check them only
     python3 chip_smoke.py --phases 1,10   # proving keys saved and loaded, GWC, instances
     python3 chip_smoke.py --phases 1,11   # the mesh layer and the distributed prover
     python3 chip_smoke.py --phases 1,12   # the bench entry points, k=17 proofs among them
+    python3 chip_smoke.py --phases 1,13   # self-checked proofs, profile_chip
     python3 chip_smoke.py --phases 1,9    # the 2048-bit MockProver (opt-in)
 
 Phases:
@@ -136,6 +137,23 @@ Phases:
    transfers, and the last one's profiler trace. Synthesis, keygen, proof
    and verify seconds and peak device memory are printed for (a) and (b),
    and the device time by kernel of a third B=16 proof under torch.profiler.
+13. the prover's self-checks and the MSM profile: (a) one k=14 ENC=128 key
+   (phase 5's circuit and SRS, the SRS generated here when phase 5 does not
+   run) and one blinding seed give proofs with `checks="all"`,
+   `"closing"` and `"none"`, the levels in turns over two rounds:
+   byte-identical and verified, each one's seconds printed (what the
+   checks cost on the card); (b) phase 10's add
+   circuit at k=14 under GWC, proved with `checks="all"` and `"closing"`:
+   equal, and `verify_proof(selfcheck=True)` accepts it opening by
+   opening. Over (a) and (b) each loop kernel launches once per bucket
+   pass, no K3, K5, K6 or K2 step runs, the loop kernels are held against
+   their plain versions on (a)'s first MSM call and K1 on the widest
+   operands; (c) `benches.profile_chip` (all four phases: the copy rate,
+   K1 and K7 at 2^20 lanes, K4's and K2's adds at 2^16, the signed MSM at
+   2^20 whole and by part, its point equal to the fixture) on phase 12's
+   k=20 SRS (generated here when phase 12 does not run). No NTT of phase 5
+   or 13 takes the native route (`poly.ops.NTT_ROUTES`): a transform on
+   the card never goes to the host.
 
 Not in the default set:
 
@@ -260,6 +278,9 @@ BENCH_BUDGET_S = 600
 BENCH_PHASES = ["start", "mulmod", "mulmod_lazy", "msm", "keygen", "proof_cold", "final"]
 SCALING_LOG2, SCALING_SHARDS = 20, 8
 PROFILE_REPS = 2
+# Phase 13: the check levels, proved with one key and one seed.
+PHASE13_BLIND, PHASE13_ROUNDS = b"chip-smoke phase 13", 2
+PROFILE_MSM_LOG2 = 20  # profile_chip's MSM: bench.py's size, phase 12's SRS
 
 
 def log(msg: str) -> None:
@@ -2157,6 +2178,93 @@ def run_bench_phase(dev, imad_per_s: float) -> list:
     return entries
 
 
+# -- phase 13: the prover's self-checks, profile_chip ------------------------------------
+
+
+def run_checks_phase(dev, params_dir: str, srs_generated_here: bool, imad_per_s: float) -> list:
+    """Phase 13; returns the kernels-line entries of (a)'s and (b)'s run."""
+    import torch
+
+    from paillier_halo2_tpu_torch.benches import profile_chip
+    from paillier_halo2_tpu_torch.harness.circuits import paillier_enc_add_test, paillier_enc_test
+    from paillier_halo2_tpu_torch.plonk.keygen import keygen
+    from paillier_halo2_tpu_torch.plonk.prover import CHECK_LEVELS, create_proof
+    from paillier_halo2_tpu_torch.plonk.srs import read_or_create_srs
+    from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
+
+    if srs_generated_here:
+        shutil.rmtree(params_dir, ignore_errors=True)
+
+    def synth(circuit, inp):
+        from paillier_halo2_tpu_torch.gadgets.context import Context
+        from paillier_halo2_tpu_torch.gadgets.range import RangeChip
+
+        ctx = Context()
+        circuit(ctx, RangeChip(ctx, MAIN_LOOKUP_BITS), inp)
+        return ctx.finalize()
+
+    def checked_proofs():
+        srs = read_or_create_srs(MAIN_K, device=dev, params_dir=params_dir)
+        # (a) the main path's circuit at every check level
+        table = synth(paillier_enc_test, main_input())
+        pk = keygen(table, MAIN_K, MAIN_LOOKUP_BITS, srs)
+        proofs, secs = set(), {level: [] for level in CHECK_LEVELS}
+        for _ in range(PHASE13_ROUNDS):  # the levels in turns: a proof's time varies
+            for level in CHECK_LEVELS[::-1]:
+                proof, t = timed(lambda: create_proof(pk, table, PHASE13_BLIND, checks=level))
+                proofs.add(proof)
+                secs[level].append(t)
+        require(len(proofs) == 1, "the k=14 proofs differ between the check levels")
+        (proof,) = proofs
+        ok, t_verify = timed(lambda: verify_proof(pk.vk, srs, proof))
+        require(ok, "the k=14 self-checked proof does not verify")
+        log(f"  (a) k={MAIN_K} ENC={MAIN_ENC}, one key and seed: proofs byte-identical at every "
+            f"level ({len(proof)} bytes) and verified ({t_verify:.4f} s); seconds in "
+            f"{PHASE13_ROUNDS} rounds: " + ", ".join(
+                f"checks={level!r} " + " ".join(f"{t:.4f}" for t in secs[level])
+                for level in CHECK_LEVELS[::-1]))
+        # (b) the add circuit under GWC
+        table = synth(paillier_enc_add_test, add_input())
+        pk = keygen(table, MAIN_K, MAIN_LOOKUP_BITS, srs, multiopen="gwc")
+        heavy, t_heavy = timed(lambda: create_proof(pk, table, PHASE13_BLIND, checks="all"))
+        plain, t_plain = timed(lambda: create_proof(pk, table, PHASE13_BLIND))
+        require(heavy == plain, "the GWC add proof differs between checks='all' and 'closing'")
+        ok, t_verify = timed(lambda: verify_proof(pk.vk, srs, heavy, selfcheck=True))
+        require(ok, "the GWC add proof does not verify opening by opening")
+        log(f"  (b) add circuit, k={MAIN_K}, GWC: checks='all' {t_heavy:.4f} s, 'closing' "
+            f"{t_plain:.4f} s, equal ({len(heavy)} bytes); verify_proof(selfcheck=True) "
+            f"{t_verify:.4f} s, every opening ok")
+
+    _, counts, cap, k1_cap, msm_calls, passes = counted_run(checked_proofs)
+    check_prover_launches("(a) and (b)", counts, msm_calls, passes, int(srs_generated_here))
+    names = ["bucket_loop_lazy", "merge_lazy", "window_sums",
+             *(["fixed_base_comb"] if srs_generated_here else [])]
+    results = check_loop_kernels(cap.captured(*names), "(a)'s first MSM call", imad_per_s)
+    results["mont_mul"] = check_k1_widest(k1_cap, "(a)'s and (b)'s widest operands")
+    entries = [kernel_entry(name, results[name], counts[name],
+                            f"phase 13 (a) and (b), self-checked proofs at k={MAIN_K}", imad_per_s)
+               for name in ("mont_mul", *names)]
+    del cap, k1_cap
+    torch.cuda.empty_cache()
+
+    # (c) profile_chip: every phase, the MSM on phase 12's SRS
+    bench_params = os.path.join(ROOT, "build", "chip_smoke_bench_params")
+    os.makedirs(bench_params, exist_ok=True)
+    out, t_prof = timed(lambda: profile_chip.run(profile_chip.PHASES, str(dev), PROFILE_MSM_LOG2,
+                                                 params_dir=bench_params))
+    msm = out["msm"]
+    require(msm["valid"] and set(out) >= set(profile_chip.PHASES),
+            "profile_chip did not run every phase, or its MSM is not the fixture's")
+    log(f"  (c) profile_chip ({t_prof:.1f} s) on {out['card']}: MSM 2^{PROFILE_MSM_LOG2} signed whole call "
+        f"{msm['full_ms']:.4f} ms; " + ", ".join(f"{k} {v:.4f} ms ({100 * msm['shares'][k]:.1f} %)"
+                                                 for k, v in msm["parts_ms"].items())
+        + f"; gap {msm['gap_ms']:.4f} ms; hbm {[round(x['gbps'], 1) for x in out['hbm']]} GB/s; "
+        f"K1 {out['mulmod']['mont_mul']['ms']:.4f} ms, K7 {out['mulmod']['mont_mul_lazy']['ms']:.4f}"
+        f" ms at 2^20; K4 {out['padd']['madd_packed_nodouble']['m_adds_per_s']:.1f}, K2 "
+        f"{out['padd']['jadd']['m_adds_per_s']:.1f} M adds/s at 2^16")
+    return entries
+
+
 def bound(name: str, entry: dict, imad_per_s: float):
     """(bound_ms, bound_by) of one timed call of `name` (see WORK), or of
     the work an entry counted itself (`ops`, `bytes`)."""
@@ -2182,7 +2290,7 @@ def kernel_entry(name: str, r: dict, launches, where: str, imad_per_s: float) ->
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,10,11,12,13",
                     help="comma-separated phases to run")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -2192,6 +2300,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: no CUDA device; the port's card path cannot run here")
     sys.path.insert(0, ROOT)
+    from paillier_halo2_tpu_torch.poly import ops
     from paillier_halo2_tpu_torch.utils import kernels
 
     dev = torch.device("cuda", 0)
@@ -2242,10 +2351,14 @@ def main() -> int:
         shutil.rmtree(params_dir, ignore_errors=True)  # the SRS is generated in this run
         torch.cuda.synchronize()
         zero_counts()
+        ops.reset_ntt_routes()
         torch.cuda.reset_peak_memory_stats(dev)
         with LoopCaptures() as cap:
             stats = run_main_path(dev, params_dir)
         main_counts = read_counts()
+        log(f"  NTT routes over the main path: {ops.NTT_ROUTES}")
+        require(ops.NTT_ROUTES["native"] == 0 and ops.NTT_ROUTES["torch"] > 0,
+                "a transform of the main path did not run on the card")
         for line in stats.pretty().splitlines():
             log("  " + line)
         log(f"  peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
@@ -2306,6 +2419,16 @@ def main() -> int:
         t12 = time.monotonic()
         bench_entries = run_bench_phase(dev, imad_per_s)
         log(f"  phase 12 took {time.monotonic() - t12:.1f} s")
+    check_entries = []
+    if 13 in phases:
+        log(f"[13] self-checked proofs at k={MAIN_K} (SHPLONK, GWC), profile_chip")
+        t13 = time.monotonic()
+        ops.reset_ntt_routes()
+        check_entries = run_checks_phase(dev, os.path.join(ROOT, "build", "chip_smoke_params"),
+                                         5 not in phases, imad_per_s)
+        log(f"  NTT routes over phase 13: {ops.NTT_ROUTES}")
+        require(ops.NTT_ROUTES["native"] == 0, "a transform of phase 13 went to the host")
+        log(f"  phase 13 took {time.monotonic() - t13:.1f} s")
     if {3, 5, 7} <= phases:
         for name in KERNELS:
             if name not in OFF_PATH:
@@ -2324,6 +2447,7 @@ def main() -> int:
     kernels_line.extend(key_entries)
     kernels_line.extend(mesh_entries)
     kernels_line.extend(bench_entries)
+    kernels_line.extend(check_entries)
     if kernels_line:
         print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,15 @@
 `bench_scaling.py` and `profile_proof.py`.
 
 Each module has `main(argv=None, device="cuda") -> dict`, which prints its
-JSON line on stdout and returns it, and runs as
+JSON line on stdout and returns it (`profile_chip` and `bench_cpu_proxy`,
+the counterparts of `profile_tpu.py` and `bench_cpu_proxy.py`, too), and
+runs as
 
     python -m paillier_halo2_tpu_torch.benches.<name> [positional ...] [--device cpu]
 
 Positional arguments follow the JAX script's; arguments stand in for its
-environment switches. Every entry runs on the card unless the caller passes
+environment switches (`--checks` for PAILLIER_TPU_SELFCHECK in every bench
+that proves). Every entry runs on the card unless the caller passes
 `--device cpu` and raises where the card is missing; progress goes to
 stderr. Proving keys are cached under `build/bench_keys/` (`--key-dir`); the
 SRS under `plonk.srs.read_or_create_srs`'s default, the repo's `params/`,
@@ -97,10 +100,12 @@ def synth(circuit, inp, lookup_bits: int):
     return ctx.finalize()
 
 
-def prove_verify(pk, srs, table, device, prove=None, check=None) -> tuple[dict, bytes]:
+def prove_verify(pk, srs, table, device, prove=None, check=None,
+                 checks: str = "closing") -> tuple[dict, bytes]:
     """A cold proof, a warm proof with its host<->device transfers counted,
     and the verifier on the warm proof, as the JAX scripts run them.
-    `prove(pk, table)` defaults to `create_proof`; `check(step, stats)`
+    `prove(pk, table, checks=)` defaults to `create_proof`, `checks` to
+    the prover's default self-checks; `check(step, stats)`
     runs before the warm proof and before verify with the keys measured so
     far (a deadline, a provisional line). Returns the scripts' keys and the
     warm proof."""
@@ -111,11 +116,11 @@ def prove_verify(pk, srs, table, device, prove=None, check=None) -> tuple[dict, 
     prove = prove or create_proof
     check = check or (lambda step, stats: None)
     stats: dict = {}
-    _, stats["proof_cold_s"] = timed(lambda: prove(pk, table), device)
+    _, stats["proof_cold_s"] = timed(lambda: prove(pk, table, checks=checks), device)
     log(f"cold proof: {stats['proof_cold_s']:.3f}s")
     check("the warm proof", stats)
     ops.reset_transfer_counts()
-    proof, t_warm = timed(lambda: prove(pk, table), device)
+    proof, t_warm = timed(lambda: prove(pk, table, checks=checks), device)
     stats.update(proof_s=t_warm, h2d=ops.TRANSFER_COUNTS["h2d"], d2h=ops.TRANSFER_COUNTS["d2h"])
     log(f"warm proof: {t_warm:.3f}s h2d={stats['h2d']} d2h={stats['d2h']}")
     check("verify", stats)

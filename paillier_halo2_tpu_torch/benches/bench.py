@@ -6,7 +6,7 @@ Counterpart of `bench.py`:
     python -m paillier_halo2_tpu_torch.benches.bench [--device cpu] [--budget-s 900]
         [--msm-log2 20] [--mulmod-log2 20] [--proof-k 14] [--proof-enc 128]
         [--proof-limb 64] [--skip-proof] [--force-keygen] [--key-dir DIR]
-        [--params-dir DIR]
+        [--params-dir DIR] [--checks closing] [--cpu-proxy-json PATH]
 
 Phases, each followed by one JSON line on stdout with everything measured so
 far and `bench.py`'s keys (the last line is the result):
@@ -23,14 +23,20 @@ far and `bench.py`'s keys (the last line is the result):
 - `keygen`, `proof_cold`, `final`: the ENC=128/LIMB=64 encryption circuit
   at k=14 (upstream src/bench.rs:161-179), inputs from `random.Random(14)`,
   its key loaded from `--key-dir` when the table's fingerprint matches,
-  then a cold and a warm proof and verify.
+  then a cold and a warm proof (self-checks `--checks`) and verify. With
+  `--cpu-proxy-json`, the JSON line `benches.bench_cpu_proxy` wrote for the
+  same k and widths: the last line adds its warm proof's seconds, its host's
+  CPUs and the ratio of its proof time to this run's
+  (`bench.py:478-496`; no file is read without the flag).
 
 Each phase has a deadline carved out of `--budget-s` (as `bench.py`'s
 SIGALRM guards, `bench.py:62-83`), checked between phases and between the
 steps of the MSM and proof phases; a native call is never interrupted, and
 no result is reported whose check did not run. On the CPU no device
 bandwidth is measured: those keys are null. Not ported: `vs_baseline`
-(against the TPU rounds' `BENCH_r0*.json`) and the CPU-proxy ratio.
+(against the TPU rounds' `BENCH_r0*.json`), and `bench.py`'s default proxy
+file `params_fixtures/cpu_proxy_k14.json` (a run of the JAX package on
+another host).
 """
 from __future__ import annotations
 
@@ -159,7 +165,8 @@ def msm_expected(k: int, srs, scalars):
 def run(device="cuda", budget_s: float = 900.0, msm_log2: int = 20, mulmod_log2: int = 20,
         proof_k: int = 14, proof_enc: int = 128, proof_limb: int = 64, skip_proof: bool = False,
         force_keygen: bool = False, key_dir: str | None = None,
-        params_dir: str | None = None) -> dict:
+        params_dir: str | None = None, checks: str = "closing",
+        cpu_proxy_json: str | None = None) -> dict:
     import numpy as np
     import torch
 
@@ -179,6 +186,7 @@ def run(device="cuda", budget_s: float = 900.0, msm_log2: int = 20, mulmod_log2:
         timed,
     )
 
+    proxy = None if cpu_proxy_json is None else read_cpu_proxy(cpu_proxy_json, proof_k, proof_enc)
     bench = Bench(budget_s)
     ex = bench.extras
     name = check_device(device)
@@ -279,7 +287,7 @@ def run(device="cuda", budget_s: float = 900.0, msm_log2: int = 20, mulmod_log2:
                     bench.emit("proof_cold")
                 check(step)
 
-            stats, _ = prove_verify(pk, srs_p, table, device, check=between)
+            stats, _ = prove_verify(pk, srs_p, table, device, check=between, checks=checks)
             ex.update(h2d_per_proof=stats["h2d"], d2h_per_proof=stats["d2h"],
                       host_syncs_per_proof=stats["h2d"] + stats["d2h"],
                       proof_verified=stats["verified"], keygen_s=t_keygen,
@@ -294,10 +302,28 @@ def run(device="cuda", budget_s: float = 900.0, msm_log2: int = 20, mulmod_log2:
         except PhaseTimeout as e:
             log(f"** phase timed out: {e}")
             ex["proof_timeout"] = True
+    if proxy is not None and ex.get("proof_s"):
+        ex.update(cpu_proxy_proof_s=proxy["proof_s"], cpu_proxy_cpus=proxy["cpus"],
+                  speedup_vs_cpu_proxy=proxy["proof_s"] / ex["proof_s"])
+        log(f"CPU proxy ({cpu_proxy_json}): {proxy['proof_s']:.3f}s on {proxy['cpus']} CPUs "
+            f"-> {ex['speedup_vs_cpu_proxy']:.2f}x")
     return bench.emit("final")
 
 
+def read_cpu_proxy(path: str, k: int, enc_bits: int) -> dict:
+    """A `benches.bench_cpu_proxy` JSON line; ValueError where it holds
+    another k or width than this run proves."""
+    with open(path) as fh:
+        proxy = json.load(fh)
+    if (proxy.get("k"), proxy.get("enc_bits")) != (k, enc_bits):
+        raise ValueError(f"{path} holds k={proxy.get('k')} enc_bits={proxy.get('enc_bits')}; "
+                         f"this run proves k={k} enc_bits={enc_bits}")
+    return proxy
+
+
 def main(argv=None, device="cuda") -> dict:
+    from ..plonk.prover import CHECK_LEVELS
+
     ap = argparse.ArgumentParser(description="Round benchmark: mulmod, MSM and proof phases")
     ap.add_argument("--device", default=device)
     ap.add_argument("--budget-s", type=float, default=900.0, help="BENCH_BUDGET_S")
@@ -310,9 +336,14 @@ def main(argv=None, device="cuda") -> dict:
     ap.add_argument("--force-keygen", action="store_true", help="BENCH_FORCE_KEYGEN=1")
     ap.add_argument("--key-dir", default=None, help="proving-key cache (default build/bench_keys)")
     ap.add_argument("--params-dir", default=None, help="SRS cache (default the repo's params/)")
+    ap.add_argument("--checks", default="closing", choices=CHECK_LEVELS,
+                    help="the prover's self-checks (PAILLIER_TPU_SELFCHECK)")
+    ap.add_argument("--cpu-proxy-json", default=None,
+                    help="a JSON line of benches.bench_cpu_proxy to report the ratio against")
     a = ap.parse_args(argv)
     return run(a.device, a.budget_s, a.msm_log2, a.mulmod_log2, a.proof_k, a.proof_enc,
-               a.proof_limb, a.skip_proof, a.force_keygen, a.key_dir, a.params_dir)
+               a.proof_limb, a.skip_proof, a.force_keygen, a.key_dir, a.params_dir, a.checks,
+               a.cpu_proxy_json)
 
 
 if __name__ == "__main__":

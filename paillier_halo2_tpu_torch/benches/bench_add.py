@@ -36,7 +36,7 @@ def add_input():
 
 
 def run(k: int = 14, device="cuda", key_dir: str | None = None, force_keygen: bool = False,
-        params_dir: str | None = None):
+        params_dir: str | None = None, checks: str = "closing"):
     """The bench; returns (its JSON keys, (pk, srs, table, proof))."""
     from ..harness.circuits import paillier_enc_add_test
     from ..plonk.srs import read_or_create_srs
@@ -50,7 +50,7 @@ def run(k: int = 14, device="cuda", key_dir: str | None = None, force_keygen: bo
     srs = read_or_create_srs(k, device=device, params_dir=params_dir)
     path = os.path.join(key_dir or KEY_DIR, f"pk_add_k{k}_enc{ENC}.npz")
     pk, t_keygen = cached_keygen(table, k, lk, srs, path, device, force_keygen)
-    stats, proof = prove_verify(pk, srs, table, device)
+    stats, proof = prove_verify(pk, srs, table, device, checks=checks)
     out = {"circuit": "paillier_add", "enc_bits": ENC, "k": k, "rows": int(table.n_rows),
            "advice_cols": pk.vk.num_advice, "synth_s": t_synth, "keygen_s": t_keygen,
            "keygen_cached": t_keygen is None, **stats, "device": name}
@@ -58,14 +58,18 @@ def run(k: int = 14, device="cuda", key_dir: str | None = None, force_keygen: bo
 
 
 def main(argv=None, device="cuda") -> dict:
+    from ..plonk.prover import CHECK_LEVELS
+
     ap = argparse.ArgumentParser(description="Addition-circuit proving bench")
     ap.add_argument("k", nargs="?", type=int, default=14)
     ap.add_argument("--device", default=device)
     ap.add_argument("--key-dir", default=None, help="proving-key cache (default build/bench_keys)")
     ap.add_argument("--force-keygen", action="store_true")
     ap.add_argument("--params-dir", default=None, help="SRS cache (default the repo's params/)")
+    ap.add_argument("--checks", default="closing", choices=CHECK_LEVELS,
+                    help="the prover's self-checks (PAILLIER_TPU_SELFCHECK)")
     a = ap.parse_args(argv)
-    out, _ = run(a.k, a.device, a.key_dir, a.force_keygen, a.params_dir)
+    out, _ = run(a.k, a.device, a.key_dir, a.force_keygen, a.params_dir, a.checks)
     print(json.dumps(out), flush=True)
     if not out["verified"]:
         raise RuntimeError("proof rejected")

@@ -49,7 +49,7 @@ def synthesize(batch: int, lookup_bits: int, enc_bits: int, limb_bits: int,
 
 
 def run(batch: int = 64, k: int = 17, lookup_bits: int | None = None, enc_bits: int = 128,
-        device="cuda", mesh: int = 0, params_dir: str | None = None):
+        device="cuda", mesh: int = 0, params_dir: str | None = None, checks: str = "closing"):
     """The bench; returns (its JSON keys, (pk, srs, table, proof))."""
     from ..plonk.distributed import create_proof_sharded
     from ..plonk.keygen import keygen
@@ -74,7 +74,7 @@ def run(batch: int = 64, k: int = 17, lookup_bits: int | None = None, enc_bits: 
         from ..mesh.sharding import make_mesh
 
         prove = functools.partial(create_proof_sharded, make_mesh(mesh, device))
-    stats, proof = prove_verify(pk, srs, table, device, prove)
+    stats, proof = prove_verify(pk, srs, table, device, prove, checks=checks)
     out = {"batch": batch, "k": k, "enc_bits": enc_bits, "rows": int(table.n_rows),
            "advice_cols": pk.vk.num_advice, "synth_s": t_synth, "synth_workers": workers,
            "keygen_s": t_keygen, "proof_cold_s": stats["proof_cold_s"],
@@ -86,6 +86,8 @@ def run(batch: int = 64, k: int = 17, lookup_bits: int | None = None, enc_bits: 
 
 
 def main(argv=None, device="cuda") -> dict:
+    from ..plonk.prover import CHECK_LEVELS
+
     ap = argparse.ArgumentParser(description="Batched-proving bench (BASELINE.json config 4)")
     ap.add_argument("batch", nargs="?", type=int, default=64)
     ap.add_argument("k", nargs="?", type=int, default=17)
@@ -94,8 +96,11 @@ def main(argv=None, device="cuda") -> dict:
     ap.add_argument("--mesh", type=int, default=0, help="shards of the distributed prover")
     ap.add_argument("--device", default=device)
     ap.add_argument("--params-dir", default=None, help="SRS cache (default the repo's params/)")
+    ap.add_argument("--checks", default="closing", choices=CHECK_LEVELS,
+                    help="the prover's self-checks (PAILLIER_TPU_SELFCHECK)")
     a = ap.parse_args(argv)
-    out, _ = run(a.batch, a.k, a.lookup_bits, a.enc_bits, a.device, a.mesh, a.params_dir)
+    out, _ = run(a.batch, a.k, a.lookup_bits, a.enc_bits, a.device, a.mesh, a.params_dir,
+                 a.checks)
     print(json.dumps(out), flush=True)
     if not out["verified"]:
         raise RuntimeError("proof rejected")

@@ -30,7 +30,8 @@ def circuit_table(enc_bits: int, lookup_bits: int):
     return synth(paillier_enc_test, enc_input(random.Random(SEED), enc_bits, LIMB), lookup_bits)
 
 
-def run(enc_bits: int = 512, k: int = 17, device="cuda", params_dir: str | None = None):
+def run(enc_bits: int = 512, k: int = 17, device="cuda", params_dir: str | None = None,
+        checks: str = "closing"):
     """The bench; returns (its JSON keys, (pk, srs, table, proof))."""
     from ..plonk.keygen import keygen
     from ..plonk.srs import read_or_create_srs
@@ -45,7 +46,7 @@ def run(enc_bits: int = 512, k: int = 17, device="cuda", params_dir: str | None 
     srs = read_or_create_srs(k, device=device, params_dir=params_dir)
     pk, t_keygen = timed(lambda: keygen(table, k, lk, srs), device)
     log(f"keygen: {t_keygen:.3f}s advice={pk.vk.num_advice}")
-    stats, proof = prove_verify(pk, srs, table, device)
+    stats, proof = prove_verify(pk, srs, table, device, checks=checks)
     out = {"enc_bits": enc_bits, "k": k, "rows": int(table.n_rows),
            "advice_cols": pk.vk.num_advice, "synth_s": t_synth, "keygen_s": t_keygen,
            **stats, "peak_device_bytes": peak_device_bytes(device), "device": name}
@@ -53,13 +54,17 @@ def run(enc_bits: int = 512, k: int = 17, device="cuda", params_dir: str | None 
 
 
 def main(argv=None, device="cuda") -> dict:
+    from ..plonk.prover import CHECK_LEVELS
+
     ap = argparse.ArgumentParser(description="Large-encryption proving bench")
     ap.add_argument("enc_bits", nargs="?", type=int, default=512)
     ap.add_argument("k", nargs="?", type=int, default=17)
     ap.add_argument("--device", default=device)
     ap.add_argument("--params-dir", default=None, help="SRS cache (default the repo's params/)")
+    ap.add_argument("--checks", default="closing", choices=CHECK_LEVELS,
+                    help="the prover's self-checks (PAILLIER_TPU_SELFCHECK)")
     a = ap.parse_args(argv)
-    out, _ = run(a.enc_bits, a.k, a.device, a.params_dir)
+    out, _ = run(a.enc_bits, a.k, a.device, a.params_dir, a.checks)
     print(json.dumps(out), flush=True)
     if not out["verified"]:
         raise RuntimeError("proof rejected")

@@ -24,7 +24,8 @@ ENC, LIMB, SEED = 128, 64, 14
 
 
 def run(k: int = 14, reps: int = 2, device="cuda", profile_dir: str | None = None,
-        trace_json: str | None = None, params_dir: str | None = None) -> dict:
+        trace_json: str | None = None, params_dir: str | None = None,
+        checks: str = "closing") -> dict:
     from ..harness.circuits import paillier_enc_test
     from ..plonk.keygen import keygen
     from ..plonk.prover import create_proof
@@ -41,15 +42,15 @@ def run(k: int = 14, reps: int = 2, device="cuda", profile_dir: str | None = Non
     srs = read_or_create_srs(k, device=device, params_dir=params_dir)
     pk, t_keygen = timed(lambda: keygen(table, k, k - 1, srs), device)
     log(f"keygen: {t_keygen:.3f}s advice={pk.vk.num_advice}")
-    _, t_cold = timed(lambda: create_proof(pk, table), device)
+    _, t_cold = timed(lambda: create_proof(pk, table, checks=checks), device)
     log(f"cold proof: {t_cold:.3f}s")
     warm = []
     for i in range(reps):
         ops.reset_transfer_counts()
         timer = PhaseTimer(f"prover, warm proof {i}", echo=True, json_path=trace_json)
         traced = profile_dir if i == reps - 1 else None
-        proof, dt = timed(lambda: create_proof(pk, table, timer=timer, profile_dir=traced),
-                          device)
+        proof, dt = timed(lambda: create_proof(pk, table, timer=timer, profile_dir=traced,
+                                               checks=checks), device)
         warm.append({"proof_s": dt, "traced": traced is not None, "h2d": ops.TRANSFER_COUNTS["h2d"],
                      "d2h": ops.TRANSFER_COUNTS["d2h"],
                      "marks": [{"phase": label, "t_total_s": total, "t_delta_s": delta}
@@ -64,6 +65,8 @@ def run(k: int = 14, reps: int = 2, device="cuda", profile_dir: str | None = Non
 
 
 def main(argv=None, device="cuda") -> dict:
+    from ..plonk.prover import CHECK_LEVELS
+
     ap = argparse.ArgumentParser(description="Phase-level profile of the k=14 proof")
     ap.add_argument("k", nargs="?", type=int, default=14)
     ap.add_argument("warm_reps", nargs="?", type=int, default=2)
@@ -71,8 +74,10 @@ def main(argv=None, device="cuda") -> dict:
     ap.add_argument("--profile-dir", default=None, help="write torch.profiler traces here")
     ap.add_argument("--trace-json", default=None, help="append the marks here as JSON")
     ap.add_argument("--params-dir", default=None, help="SRS cache (default the repo's params/)")
+    ap.add_argument("--checks", default="closing", choices=CHECK_LEVELS,
+                    help="the prover's self-checks (PAILLIER_TPU_SELFCHECK)")
     a = ap.parse_args(argv)
-    out = run(a.k, a.warm_reps, a.device, a.profile_dir, a.trace_json, a.params_dir)
+    out = run(a.k, a.warm_reps, a.device, a.profile_dir, a.trace_json, a.params_dir, a.checks)
     print(json.dumps(out), flush=True)
     if not out["verified"]:
         raise RuntimeError("proof rejected")

@@ -68,9 +68,10 @@ def _sync(device) -> None:
 
 
 def bench_builder(k: int, lookup_bits: int, init_input, logic_input, circuit_fn, device="cuda",
-                  params_dir: str | None = None) -> BenchStats:
+                  params_dir: str | None = None, checks: str = "closing") -> BenchStats:
     """circuit_fn(ctx, range_chip, input) builds the circuit, as the closure
-    at upstream src/bench.rs:165-171. `params_dir` holds the SRS cache."""
+    at upstream src/bench.rs:165-171. `params_dir` holds the SRS cache;
+    `checks` is the prover's self-check level (`plonk.prover.CHECK_LEVELS`)."""
     # Phase A: shape discovery with the init input.
     ctx = Context()
     circuit_fn(ctx, RangeChip(ctx, lookup_bits), init_input)
@@ -92,7 +93,7 @@ def bench_builder(k: int, lookup_bits: int, init_input, logic_input, circuit_fn,
     if table.n_rows != shape_table.n_rows:
         raise ValueError("circuit shape depends on the witness")
     t3 = time.monotonic()
-    proof = create_proof(pk, table)
+    proof = create_proof(pk, table, checks=checks)
     _sync(device)
     t4 = time.monotonic()
     ok = verify_proof(pk.vk, srs, proof)

@@ -154,7 +154,19 @@ def _bucket_accumulate(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...
     and merge kernels; else K4's bucket loop and K2's merge). bcaps[w] caps
     window w's bucket lanes (its keys stay below it); the buckets above a
     cap are infinity. Returns canonical Jacobian buckets, each coordinate
-    (8, W, n_buckets). Bases must be pairwise distinct."""
+    (8, W, n_buckets). Bases must be pairwise distinct. Three steps, each
+    its own function so that `benches/profile_chip.py` can time it:
+    `_bucket_plan`, `_bucket_loop`, `_bucket_merge`."""
+    loop_args, blocks = _bucket_plan(px, py, p_inf, keys, n_buckets, subs, bcaps, neg, stats)
+    return _bucket_merge(_bucket_loop(loop_args, neg is not None), blocks, n_buckets,
+                         neg is not None)
+
+
+def _bucket_plan(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...],
+                 bcaps: tuple[int, ...] | None = None, neg=None, stats=None):
+    """The bases packed into rows, each window's keys sorted and the lane
+    table built: returns (the bucket-loop kernel's arguments, the blocks of
+    windows the merge takes). `_bucket_accumulate` gives the arguments."""
     lazy = neg is not None
     device = px.device
     n = px.shape[1]
@@ -208,19 +220,27 @@ def _bucket_accumulate(px, py, p_inf, keys, n_buckets: int, subs: tuple[int, ...
                        ("lane_rounds", int(need.sum()))):
             stats[key] = stats.get(key, 0) + v
 
-    # the whole loop in one launch, accumulators in lane order
+    # the loop's arguments, accumulators in lane order
     table = tuple(x[perm].to(torch.int32) for x in (seg_l, counts_l, sub_map, nsub_map, win_map))
     order32, lane32 = order_flat.to(torch.int32), perm.to(torch.int32)
     if lazy:
         neg_sorted = torch.gather(neg, 1, order).reshape(-1)  # by sorted position
-        acc = lzp.bucket_loop_lazy(packed, order32, neg_sorted, *table, lane32, n)
-    else:
-        acc = pk.bucket_loop(packed, order32, *table, lane32, n)
+        return (packed, order32, neg_sorted, *table, lane32, n), blocks
+    return (packed, order32, *table, lane32, n), blocks
 
-    # Merge each block's S sub-accumulators in a halving tree (S is a power
-    # of two), pad capped windows' dead buckets with infinity, restore the
-    # window-row order: one launch on the signed route, which also
-    # canonicalises; level by level of K2 on the unsigned one.
+
+def _bucket_loop(loop_args, lazy: bool):
+    """The whole bucket loop in one launch (`_bucket_plan`'s arguments)."""
+    if lazy:
+        return lzp.bucket_loop_lazy(*loop_args)
+    return pk.bucket_loop(*loop_args)
+
+
+def _bucket_merge(acc, blocks, n_buckets: int, lazy: bool):
+    """Merge each block's S sub-accumulators in a halving tree (S is a power
+    of two), pad capped windows' dead buckets with infinity, restore the
+    window-row order: one launch on the signed route, which also
+    canonicalises; level by level of K2 on the unsigned one."""
     if lazy:
         return lzp.merge_lazy(acc, blocks, n_buckets)
     return lzp.merge_rounds(lambda lo, hi: bn254.padd(lo, hi, nodouble=True), acc, blocks,

@@ -5,10 +5,11 @@ the port's own copy, `native/bn254.cpp` beside this file (the JAX package's
 engine, unchanged), compiled with g++ into the gitignored `build/native/`
 directory at the repository root, keyed by a hash of the source. The port uses
 the engine for host work: `ec/host` scalar multiplications and additions, the
-verifier's pairing check, and the KZG commitments of a CPU proof
-(`g1_msm_raw`, from `plonk/kzg.py`). Import never fails: without a compiler
-`lib()` returns None; the host point operations then take the pure-Python
-path, and a CPU commitment raises.
+verifier's pairing check, and the KZG commitments and NTTs of a CPU proof
+(`g1_msm_raw`, from `plonk/kzg.py`; `fr_ntt`, from `poly/ops.py`). Import
+never fails: without a compiler `lib()` returns None; the host point
+operations then take the pure-Python path, a CPU transform the plain torch
+NTT, and a CPU commitment raises.
 """
 from __future__ import annotations
 
@@ -84,6 +85,10 @@ def lib():
     ]
     L.pairing_check_c.restype = ctypes.c_int
     L.fr_ctx_init.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_uint64]
+    L.fr_ntt_c.argtypes = [
+        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.c_int,
+    ]
 
     L.fr_ctx_init(
         R.to_bytes(32, "little"),
@@ -133,6 +138,34 @@ def g1_mul(p, k: int):
     oinf = ctypes.c_int()
     lib().g1_mul_c(pb, pi, kb, len(kb), out, ctypes.byref(oinf))
     return _dec_g1(out.raw, oinf)
+
+
+def fr_ntt(data, k: int, inverse: bool) -> None:
+    """In-place radix-2 NTT over Fr on a C-contiguous (batch, n, 32) uint8
+    numpy array of little-endian Montgomery-form elements (n = 2^k), as
+    `poly/ntt.py` `ntt` computes it (in-order DIT; the inverse includes the
+    1/n scale). Rows run on the engine's threads. Raises ValueError on
+    another dtype, layout or shape, RuntimeError without the library."""
+    import numpy as np
+
+    from ..ff.host import FR_MOD, root_of_unity
+
+    n = 1 << k
+    if data.dtype != np.uint8 or not data.flags["C_CONTIGUOUS"]:
+        raise ValueError(f"fr_ntt takes a C-contiguous uint8 array, not {data.dtype} "
+                         f"(C-contiguous: {data.flags['C_CONTIGUOUS']})")
+    if data.ndim < 2 or data.shape[-2:] != (n, 32):
+        raise ValueError(f"fr_ntt at k={k} takes (batch, {n}, 32) rows, not {data.shape}")
+    L = lib()
+    if L is None:
+        raise RuntimeError("native BN254 engine unavailable (no g++?): no native NTT")
+    w = root_of_unity(k)
+    scale = b"\x00" * 32
+    if inverse:
+        w = pow(w, FR_MOD - 2, FR_MOD)
+        scale = pow(n, FR_MOD - 2, FR_MOD).to_bytes(32, "little")
+    L.fr_ntt_c(data.ctypes.data_as(ctypes.c_void_p), n, data.size // (n * 32),
+               w.to_bytes(32, "little"), scale, 1 if inverse else 0)
 
 
 def g1_msm_raw(pts: bytes, infs: bytes, scalars: bytes, n: int):

@@ -25,6 +25,6 @@ def keygen_sharded(mesh, table: VirtualTable, k: int, lookup_bits: int, srs: SRS
 
 
 def create_proof_sharded(mesh, pk: ProvingKey, table: VirtualTable,
-                         blinding_seed: bytes | None = None) -> bytes:
+                         blinding_seed: bytes | None = None, checks: str = "closing") -> bytes:
     with ops.proving_mesh(mesh):
-        return create_proof(pk, table, blinding_seed)
+        return create_proof(pk, table, blinding_seed, checks=checks)

@@ -11,11 +11,14 @@ the engine, as the JAX package's `_use_native_backend()` does
   device too: signed windows through K5 and K6;
 - on the CPU, the native C++ Pippenger (`native/g1_msm_raw`), with the SRS
   encoded once per SRS object (`_native_srs_bytes`, `_commit_many_native`,
-  `kzg.py:32-80`). Without the native library a CPU commitment raises.
+  `kzg.py:32-80`), a phase's polynomials on threads of their own. Without
+  the native library a CPU commitment raises.
 
 A commitment is a point, so the engine changes no proof byte.
 """
 from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -61,13 +64,17 @@ def _native_srs_bytes(srs: SRS) -> tuple[bytes, bytes]:
 
 
 def _commit_many_native(srs: SRS, coeffs_list, m: int) -> list[ech.Point]:
+    """One native MSM per polynomial, on as many threads as torch's
+    intra-op pool (`torch.set_num_threads`): the engine's MSM is
+    single-threaded and re-entrant, and ctypes releases the interpreter
+    lock for the call."""
     pts_b, infs_b = _native_srs_bytes(srs)
     pts_b, infs_b = pts_b[: 64 * m], infs_b[:m]
-    out = []
-    for c in coeffs_list:
-        limbs = f.from_mont(f.FR, c).numpy().view(np.uint32)  # (8, m)
-        out.append(native.g1_msm_raw(pts_b, infs_b, limbs.T.tobytes(), m))
-    return out
+    scalars = [f.from_mont(f.FR, c).numpy().view(np.uint32).T.tobytes() for c in coeffs_list]
+    native.lib()  # built once here, before any thread asks for it
+    workers = min(len(scalars), torch.get_num_threads())
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(lambda sc: native.g1_msm_raw(pts_b, infs_b, sc, m), scalars))
 
 
 def commit_many(srs: SRS, coeffs_list) -> list[ech.Point]:

@@ -24,6 +24,17 @@ Constraint order (the y-combination; verifier.py must match exactly):
 
 Slab widths come from the device's free memory (`torch.cuda.mem_get_info`)
 in place of the JAX package's HBM knobs; slabbing never changes a value.
+
+Self-checks (`create_proof(..., checks=)`, in place of the JAX package's
+`PAILLIER_TPU_SELFCHECK`, `prover.py:47-60`): `"closing"` (the default)
+reads back whether the permutation and lookup grand products close, one
+readback each, so an unsatisfied witness raises before a proof is made;
+`"all"` adds the three algebraic checks of the JAX package, each printing a
+`[selfcheck]` line: the quotient's degree tail (`_check_degree_tail`), the
+GWC fold and division identity per opening set (`_check_gwc_set`) and
+SHPLONK's L(u) == 0 (`_check_shplonk_l`); `"none"` reads back nothing. A
+failed check raises ValueError. No check writes to the transcript, so the
+proof bytes do not depend on the level.
 """
 from __future__ import annotations
 
@@ -48,6 +59,8 @@ from .transcript import TranscriptWriter
 P = host.FR_MOD
 SPEC = f.FR
 N_LIMBS = 8
+CHECK_LEVELS = ("none", "closing", "all")
+GWC_CHECK_POINT = 0x1234567  # the JAX package's xi for the division identity (`prover.py:1019`)
 
 # Device bytes one lane of a batched NTT column may hold at peak: the limb
 # tensor plus the int64 temporaries of the plain add/sub chains.
@@ -210,21 +223,84 @@ def _fused_lookups(k, k_ext, zl_ext, lk_stack, ap_stack, sp_stack, table_ext, l0
     return _fold(acc, cstack, ypow, ym)
 
 
+def _check_degree_tail(t_coeffs: torch.Tensor, n_pieces: int, n: int) -> None:
+    """Every coefficient of t(X) past n_pieces * n is zero: a nonzero one
+    means a constraint exceeds the degree bound the pieces assume, and the
+    proof would be unsound. Counted on the device, one readback."""
+    tail = t_coeffs[:, n_pieces * n :]
+    n_bad = int((tail != 0).any(dim=0).sum())
+    print(f"[selfcheck] t degree tail: {n_bad}/{tail.shape[1]} nonzero coeffs past "
+          f"{n_pieces}n {'** DEGREE OVERFLOW **' if n_bad else '(ok)'}", flush=True)
+    if n_bad:
+        raise ValueError(f"quotient degree overflow: {n_bad} nonzero t(X) coefficients past "
+                         f"{n_pieces}*n; a constraint exceeds the assumed degree bound")
+
+
+def _check_shplonk_l(big_l: torch.Tensor, u: int) -> None:
+    """SHPLONK's linearisation polynomial L vanishes at the challenge u."""
+    lu = ops.eval_at(big_l, u)
+    print(f"[selfcheck] shplonk L(u) == 0: {lu == 0}", flush=True)
+    if lu != 0:
+        raise ValueError("SHPLONK self-check failed: L(u) != 0")
+
+
+class _Evaluator:
+    """One-off evaluations at host points for the GWC self-check
+    (`prover.py:270-286`), each point's power row built once on the
+    device."""
+
+    def __init__(self, n: int, device):
+        self.n, self.device = n, device
+        self._powers: dict[int, torch.Tensor] = {}
+
+    def eval(self, coeffs: torch.Tensor, x: int) -> int:
+        if x not in self._powers:
+            self._powers[x] = ops.powers_dev([x], self.n, self.device)[:, 0]
+        pw = self._powers[x][:, : coeffs.shape[1]]
+        return ops.from_device_mont(ops._sum_reduce(_mul(coeffs, pw)))[0]
+
+
+def _check_gwc_set(ev: _Evaluator, key: str, folded: torch.Tensor, z: int, evals: list[int],
+                   nu: int) -> None:
+    """One GWC opening set: the nu-fold of its polynomials, evaluated at z,
+    equals the same fold of the evaluations written to the transcript, and
+    its quotient (f(X) - f(z)) / (X - z) satisfies the division identity at
+    GWC_CHECK_POINT (`prover.py:996-1031`)."""
+    fz = ev.eval(folded, z)
+    v_fold = 0
+    for e in evals:
+        v_fold = (v_fold * nu + e) % P
+    xi = GWC_CHECK_POINT
+    lhs = (ev.eval(folded, xi) - fz) * pow(xi - z, P - 2, P) % P
+    rhs = ev.eval(ops.synthetic_divide(folded, z), xi)
+    print(f"[selfcheck] open@{key}: fold==f(z): {fz == v_fold}; division identity: {lhs == rhs}",
+          flush=True)
+    if fz != v_fold or lhs != rhs:
+        raise ValueError(f"GWC self-check failed at {key}: fold==f(z) {fz == v_fold}, "
+                         f"division identity {lhs == rhs}")
+
+
 def create_proof(pk: ProvingKey, table: VirtualTable, blinding_seed: bytes | None = None,
-                 timer: PhaseTimer | None = None, profile_dir: str | None = None) -> bytes:
+                 timer: PhaseTimer | None = None, profile_dir: str | None = None,
+                 checks: str = "closing") -> bytes:
     """blinding_seed=None (the default) draws fresh randomness (os.urandom),
     so proofs are zero-knowledge; an explicit seed makes them deterministic
     (fixtures, tests). With `profile_dir` the proof runs under
     `profile_section("create_proof", profile_dir)`, which writes a trace
-    there."""
+    there. `checks` is one of CHECK_LEVELS (module docstring); the bytes
+    are the same at every level."""
+    if checks not in CHECK_LEVELS:
+        raise ValueError(f"unknown self-check level {checks!r}; one of {CHECK_LEVELS}")
     if blinding_seed is None:
         blinding_seed = os.urandom(32)
     timer = timer or PhaseTimer("prover")
     with torch.no_grad(), profile_section("create_proof", profile_dir):
-        return _create_proof_inner(pk, table, blinding_seed, timer.mark)
+        return _create_proof_inner(pk, table, blinding_seed, timer.mark, checks)
 
 
-def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: bytes, _mark) -> bytes:
+def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: bytes, _mark,
+                        checks: str) -> bytes:
+    closing, heavy = checks != "none", checks == "all"
     vk = pk.vk
     check_multiopen(vk.multiopen)
     dev = pk.srs.device
@@ -332,7 +408,7 @@ def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: byte
     # chain starts: starts[c] = prod_{c' < c} ends[c']
     pp_ends = ops.prefix_product(torch.cat(ends, dim=1))
     starts = torch.cat([one_m, pp_ends[:, :-1]], dim=1)
-    if ops.from_device_mont(pp_ends[:, -1:])[0] != 1:
+    if closing and ops.from_device_mont(pp_ends[:, -1:])[0] != 1:
         raise ValueError("permutation product does not close (copy constraints unsatisfied?)")
     zp_blind_dev = ops.to_device_mont(_blind_rows(blinding_seed, b"zp%d", n_chunks, usable, n), dev)
     zp_parts = []
@@ -362,7 +438,7 @@ def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: byte
         frac_l = _mul(num_l, ops.batch_inverse(den_l))
         frac_l = torch.where(act_dev, frac_l, one_m[:, None, :])
         pref_l = ops.prefix_product(frac_l)
-        if any(e != 1 for e in ops.from_device_mont(pref_l[:, :, usable - 1 : usable])):
+        if closing and any(e != 1 for e in ops.from_device_mont(pref_l[:, :, usable - 1 : usable])):
             raise ValueError("lookup product does not close (lookup unsatisfied?)")
         zl_all = torch.cat([one_m[:, None, :].expand(N_LIMBS, nl, 1), pref_l[:, :, :-1]], dim=2)
         zl_all[:, :, usable + 1 :] = ops.to_device_mont(
@@ -450,6 +526,8 @@ def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: byte
     _mark("quotient divided")
     t_coeffs = ops.coeffs_from_extended(t_ext, k, k_ext)
     n_pieces = 3  # max constraint degree 4 -> deg(t) <= 3n - 4
+    if heavy:
+        _check_degree_tail(t_coeffs, n_pieces, n)
     t_pieces = [t_coeffs[:, i * n : (i + 1) * n] for i in range(n_pieces)]
     for pt in commit_many(pk.srs, t_pieces):
         tr.write_point(pt)
@@ -520,7 +598,8 @@ def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: byte
         return _mul(_mul(s, zinvrow), _mont([zinv], dev))
 
     if vk.multiopen == "gwc":
-        _gwc_open(pk, tr, opening_sets, pw, pw_inv, zinvs, fold_slabbed)
+        ev = _Evaluator(n, dev) if heavy else None
+        _gwc_open(pk, tr, opening_sets, all_evals, points, pw, pw_inv, zinvs, fold_slabbed, ev)
     else:
         _shplonk_open(
             pk, tr, opening_sets, all_evals, points, pw, pw_inv, zinvs, fold_slabbed,
@@ -531,26 +610,31 @@ def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: byte
                 "sigma": pk.sigma_coeffs, "zp": zp_coeffs, "zl": zl_coeffs,
                 "ap": ap_coeffs, "sp": sp_coeffs, "t": t_pieces,
             },
+            heavy,
         )
     _mark("multiopen done")
     return tr.finalize()
 
 
-def _gwc_open(pk, tr, opening_sets, pw, pw_inv, zinvs, fold_slabbed):
+def _gwc_open(pk, tr, opening_sets, all_evals, points, pw, pw_inv, zinvs, fold_slabbed,
+              ev: _Evaluator | None):
     """GWC multi-open (`prover.py:990-1048`): each non-empty opening set
     folded by powers of nu (first poly highest), then every W quotient in
     one batched synthetic division, q_i = z^-(i+1) * suffix_sum(c_j z^j)_{i+1}
-    over the power rows, and the W points in one commit_many."""
+    over the power rows, and the W points in one commit_many. With an
+    evaluator each fold is self-checked (`_check_gwc_set`)."""
     dev = pw.device
     nu = tr.squeeze_challenge()
     acc_list, acc_rows = [], []
-    for si, (_, polys) in enumerate(opening_sets):
+    for si, (key, polys) in enumerate(opening_sets):
         if not polys:
             continue
         m = len(polys)
         nupow = _mont([pow(nu, m - 1 - i, P) for i in range(m)], dev)[:, :, None]
         acc_list.append(fold_slabbed(polys, nupow))
         acc_rows.append(si)
+        if ev is not None:
+            _check_gwc_set(ev, key, acc_list[-1], points[key], all_evals[key], nu)
     incl = ops._suffix_sum(_mul(torch.stack(acc_list, dim=1), pw[:, acc_rows]))
     del acc_list
     s = torch.cat([incl[..., 1:], torch.zeros_like(incl[..., :1])], dim=-1)
@@ -561,11 +645,11 @@ def _gwc_open(pk, tr, opening_sets, pw, pw_inv, zinvs, fold_slabbed):
 
 
 def _shplonk_open(pk, tr, opening_sets, all_evals, points, pw, pw_inv, zinvs,
-                  fold_slabbed, syn_div_rows, n, na, nl, nzp, polys_by_kind):
+                  fold_slabbed, syn_div_rows, n, na, nl, nzp, polys_by_kind, heavy: bool):
     """SHPLONK (BDFG20) multi-open (`prover.py:288-401`); see
     plonk/multiopen.py for the protocol and the grouping shared with the
     verifier. Poly arithmetic runs on the device; the r_i(u) Lagrange terms
-    and Z_T factors are host scalars."""
+    and Z_T factors are host scalars. `heavy` checks L(u) == 0."""
     dev = pw.device
     npc = pk.vk.n_perm_cols
     groups = shplonk_groups(na, nl, npc, nzp, len(polys_by_kind["t"]))
@@ -646,6 +730,8 @@ def _shplonk_open(pk, tr, opening_sets, all_evals, points, pw, pw_inv, zinvs,
     coefs = _mont(a_list + [(P - z_t) % P], dev)[:, :, None]
     big_l = fold_slabbed(F_list + [h_acc], coefs)
     big_l = torch.cat([_sub(big_l[:, :1], _mont([c], dev)), big_l[:, 1:]], dim=1)
+    if heavy:
+        _check_shplonk_l(big_l, u)
     u_inv = pow(u, P - 2, P)
     pwu = ops.powers_dev([u, u_inv], n, dev)
     q_poly = syn_div_rows(big_l, pwu[:, 0], pwu[:, 1], u_inv)

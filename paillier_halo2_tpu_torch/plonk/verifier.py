@@ -6,7 +6,9 @@ arithmetic: transcript replay, the quotient identity at the challenge point
 
 Counterpart of `paillier_halo2_tpu/plonk/verifier.py:1`, SHPLONK and GWC
 (the verifying key's `multiopen`). It runs on the host, with the native
-engine's pairing when it builds.
+engine's pairing when it builds. A rejected proof prints which check failed
+(the quotient identity, the SHPLONK pairing or the GWC pairing), as the JAX
+package does under `PAILLIER_TPU_TRACE`.
 """
 from __future__ import annotations
 
@@ -92,14 +94,19 @@ def _verify_shplonk(vk, srs, tr, commits, evals, points, na, nl, nz, npc, n_piec
     big_l = ech.g1_add(big_l, ech.g1_neg(ech.g1_mul(h_commit, z_t)))
 
     rhs = ech.g1_add(big_l, ech.g1_mul(q_commit, u))
-    return pairing_check([(q_commit, srs.g2_tau), (ech.g1_neg(rhs), srs.g2_gen)])
+    ok = pairing_check([(q_commit, srs.g2_tau), (ech.g1_neg(rhs), srs.g2_gen)])
+    if not ok:
+        print("[verifier] shplonk pairing check FAILED", flush=True)
+    return ok
 
 
-def _verify_gwc(srs, tr, sets, points):
+def _verify_gwc(srs, tr, sets, points, selfcheck: bool = False):
     """GWC verification — mirrors prover._gwc_open. `sets`: per opening
     point, its (commitment, eval) pairs in the prover's fold order. Reads
     one W per non-empty set; accepts iff
-    e(sum u^j W_j, [tau]_2) == e(sum u^j (z_j W_j + F_j - v_j G), [1]_2)."""
+    e(sum u^j W_j, [tau]_2) == e(sum u^j (z_j W_j + F_j - v_j G), [1]_2).
+    With `selfcheck` each opening's own pairing runs and prints its verdict
+    (`verifier.py:323-334`); the batched pairing alone decides."""
     nu = tr.squeeze_challenge()
     sets = [(key, pairs) for key, pairs in sets if pairs]
     w_commits = [tr.read_point() for _ in sets]
@@ -115,32 +122,43 @@ def _verify_gwc(srs, tr, sets, points):
             vj = (vj * nu + e) % P
         term = ech.g1_add(ech.g1_mul(wc, points[key]), fj)
         term = ech.g1_add(term, ech.g1_neg(ech.g1_mul(ech.G1, vj)))
+        if selfcheck:
+            single = pairing_check([(wc, srs.g2_tau), (ech.g1_neg(term), srs.g2_gen)])
+            print(f"[verifier selfcheck] opening@{key}: {'ok' if single else '** FAILS **'}",
+                  flush=True)
         lhs_pt = ech.g1_add(lhs_pt, ech.g1_mul(wc, upow))
         rhs_pt = ech.g1_add(rhs_pt, ech.g1_mul(term, upow))
         upow = upow * u % P
-    return pairing_check([(lhs_pt, srs.g2_tau), (ech.g1_neg(rhs_pt), srs.g2_gen)])
+    ok = pairing_check([(lhs_pt, srs.g2_tau), (ech.g1_neg(rhs_pt), srs.g2_gen)])
+    if not ok:
+        print("[verifier] gwc pairing check FAILED (quotient identity held)", flush=True)
+    return ok
 
 
 def verify_proof(
-    vk: VerifyingKey, srs: SRS, proof: bytes, instances: list[int] | None = None
+    vk: VerifyingKey, srs: SRS, proof: bytes, instances: list[int] | None = None,
+    selfcheck: bool = False,
 ) -> bool:
     """`instances`: the statement's public-input values (required iff the
     circuit exposes any — vk.num_instance == 1). The verifier re-derives the
     instance evaluation itself, so a proof only verifies against the exact
     public values the prover committed to. A key with an unknown multi-open
     scheme, or a call without the instances its circuit exposes, raises
-    ValueError; a proof that fails any check returns False."""
+    ValueError; a proof that fails any check returns False. `selfcheck`
+    runs and prints a GWC proof's per-opening pairings (SHPLONK has one
+    opening); it does not change the verdict."""
     check_multiopen(vk.multiopen)
     if vk.num_instance and instances is None:
         raise ValueError("circuit exposes public inputs; pass instances=")
     try:
-        return _verify(vk, srs, proof, instances)
+        return _verify(vk, srs, proof, instances, selfcheck)
     except (ValueError, AssertionError):
         return False
 
 
 def _verify(
-    vk: VerifyingKey, srs: SRS, proof: bytes, instances: list[int] | None = None
+    vk: VerifyingKey, srs: SRS, proof: bytes, instances: list[int] | None = None,
+    selfcheck: bool = False,
 ) -> bool:
     k, n, usable = vk.k, vk.n, vk.usable
     na, nl = vk.num_advice, vk.num_lookup_advice
@@ -274,6 +292,7 @@ def _verify(
     for j in range(n_pieces - 1, -1, -1):
         t_eval = (t_eval * xn + t_x[j]) % P
     if acc != t_eval * zh_x % P:
+        print("[verifier] quotient identity FAILED at x", flush=True)
         return False
 
     if vk.multiopen == "gwc":
@@ -288,7 +307,7 @@ def _verify(
             ("w3x", list(zip(adv_commits, evw3x))),
             ("winvx", list(zip(ap_commits, ap_winvx))),
             ("wux", list(zip(zp_commits[: nz - 1], evwux))),
-        ], points)
+        ], points, selfcheck)
     return _verify_shplonk(
         vk, srs, tr,
         {

@@ -2,11 +2,17 @@
 coefficient/evaluation conversions, coset extension, evaluation, prefix
 products, batch inversion, synthetic division.
 
-Counterpart of `paillier_halo2_tpu/poly/ops.py:1`, without the CPU routing
-of NTTs to C++: on a CPU tensor the transforms run the port's own
-plain-torch NTT. All polynomials are (8, ..., n) int32 Montgomery limb
-tensors, limb-first. Every function that creates a tensor takes the device
-explicitly.
+Counterpart of `paillier_halo2_tpu/poly/ops.py:1`. All polynomials are
+(8, ..., n) int32 Montgomery limb tensors, limb-first. Every function that
+creates a tensor takes the device explicitly.
+
+Transforms take one of three routes (`_ntt_any`, counted in `NTT_ROUTES`):
+the four-step NTT over an active mesh (below); else, on a CPU tensor, the
+native engine's C++ NTT (`native.fr_ntt`, `paillier_halo2_tpu/poly/ops.py:137-177`)
+where the library builds; else the port's own NTT (`poly/ntt.py`, K1's
+butterflies on the card). A CUDA tensor never goes to the host.
+`ntt_backend("torch" | "native")` forces a route for tests, in place of
+the JAX package's `PAILLIER_TPU_NTT_BACKEND`.
 
 Inside `proving_mesh(mesh)` (the distributed prover, `plonk/distributed.py`)
 every transform of size n with d > 1 and d^2 | n runs as the four-step NTT
@@ -21,6 +27,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import native
 from ..ff import field as f
 from ..ff import host
 from ..mesh.ntt import ntt_natural
@@ -78,10 +85,76 @@ def _mesh_for(n: int):
     return m if d > 1 and n % (d * d) == 0 else None
 
 
+# -- transform routes --------------------------------------------------------------
+
+NTT_BACKENDS = ("auto", "torch", "native")
+NTT_ROUTES = {"mesh": 0, "native": 0, "torch": 0}  # transforms taken by each route
+_NTT_BACKEND = "auto"
+
+
+class ntt_backend:
+    """Context manager that picks the route of the transforms outside a
+    mesh: `"auto"` (the default: native on a CPU tensor where the library
+    builds, else torch), `"torch"` (the port's NTT, the card's arithmetic,
+    on every device) or `"native"` (the C++ NTT; a CUDA tensor or a missing
+    library then raises ValueError)."""
+
+    def __init__(self, backend: str):
+        if backend not in NTT_BACKENDS:
+            raise ValueError(f"unknown NTT backend {backend!r}; one of {NTT_BACKENDS}")
+        self.backend = backend
+
+    def __enter__(self):
+        global _NTT_BACKEND
+        self._prev = _NTT_BACKEND
+        _NTT_BACKEND = self.backend
+        return self.backend
+
+    def __exit__(self, *exc):
+        global _NTT_BACKEND
+        _NTT_BACKEND = self._prev
+        return False
+
+
+def reset_ntt_routes() -> dict:
+    prev = dict(NTT_ROUTES)
+    for key in NTT_ROUTES:
+        NTT_ROUTES[key] = 0
+    return prev
+
+
+def _use_native(x: torch.Tensor) -> bool:
+    if _NTT_BACKEND == "torch":
+        return False
+    if _NTT_BACKEND == "native":
+        if x.device.type != "cpu":
+            raise ValueError(f"the native NTT runs on the host; refusing a {x.device} tensor")
+        if native.lib() is None:
+            raise ValueError("the native NTT was asked for, but the native library did not build")
+        return True
+    return x.device.type == "cpu" and native.lib() is not None
+
+
+def _ntt_native(x: torch.Tensor, k: int, inverse: bool) -> torch.Tensor:
+    """The C++ NTT on a CPU tensor: (8, *batch, n) int32 limbs viewed as the
+    engine's (B, n, 32) little-endian bytes, transformed in place, and
+    viewed back."""
+    n = 1 << k
+    batch = x.shape[1:-1]
+    rows = x.reshape(N_LIMBS, -1, n).permute(1, 2, 0).contiguous()  # (B, n, 8)
+    native.fr_ntt(rows.view(torch.uint8).numpy(), k, inverse)
+    return rows.permute(2, 0, 1).reshape((N_LIMBS,) + tuple(batch) + (n,)).contiguous()
+
+
 def _ntt_any(x: torch.Tensor, k: int, inverse: bool) -> torch.Tensor:
     mesh = _mesh_for(1 << k)
     if mesh is not None:
+        NTT_ROUTES["mesh"] += 1
         return ntt_natural(mesh, x, k, inverse)
+    if _use_native(x):
+        NTT_ROUTES["native"] += 1
+        return _ntt_native(x, k, inverse)
+    NTT_ROUTES["torch"] += 1
     return ntt(x, k, inverse)
 
 

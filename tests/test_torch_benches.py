@@ -11,6 +11,11 @@ CPU at small sizes:
 - `bench.main` validates its MSM against the committed fixture, proves and
   verifies, and prints `bench.py`'s keys after each phase;
 - `bench_scaling` gives the unsharded MSM's point at every shard count;
+- `profile_chip`'s MSM phase (the whole call and its parts) gives the
+  committed fixture's point;
+- `bench_cpu_proxy` proves and verifies and prints the keys of the root
+  `bench_cpu_proxy.py`, and `bench --cpu-proxy-json` reports the ratio to
+  it (with a stand-in prover: the proof is not what is checked there);
 - `PhaseTimer(json_path=)` writes the JAX package's keys and
   `profile_section` writes a trace.
 
@@ -33,7 +38,16 @@ from paillier_halo2_tpu.harness.circuits import PaillierEncryptionInput as JaxEn
 from paillier_halo2_tpu.harness.circuits import paillier_enc_test as jax_enc_test
 from paillier_halo2_tpu.plonk.layout import assign_layout as jax_assign_layout
 from paillier_halo2_tpu.utils.trace import PhaseTimer as JaxPhaseTimer
-from paillier_halo2_tpu_torch.benches import bench, bench_batch, bench_bigenc, bench_scaling
+from paillier_halo2_tpu_torch import benches
+from paillier_halo2_tpu_torch.benches import (
+    bench,
+    bench_batch,
+    bench_bigenc,
+    bench_cpu_proxy,
+    bench_scaling,
+    profile_chip,
+)
+from paillier_halo2_tpu_torch.msm import pippenger
 from paillier_halo2_tpu_torch.plonk.keygen import keygen
 from paillier_halo2_tpu_torch.plonk.layout import assign_layout
 from paillier_halo2_tpu_torch.plonk.prover import create_proof
@@ -161,6 +175,65 @@ def test_bench_main_on_the_cpu(params_dir, tmp_path, capsys):
     assert set(out) == want
     # no device bandwidth on the CPU
     assert out["hbm_copy_gbps_measured"] is None and out["mulmod_pct_of_spec_bw"] is None
+
+
+def root_script_keys(name: str, target: str) -> set:
+    """The keys of the dict literal a root script assigns to `target`."""
+    tree = ast.parse((ROOT / name).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", None) == target \
+                and isinstance(node.value, ast.Dict):
+            return {k.value for k in node.value.keys}
+    raise AssertionError(f"no {target} = {{...}} in {name}")
+
+
+def test_bench_cpu_proxy_proves_with_the_jax_keys(params_dir, tmp_path):
+    fixtures = sorted((ROOT / "params_fixtures").iterdir())
+    out_path = tmp_path / "proxy.json"
+    line = bench_cpu_proxy.main([str(K), "--enc", "8", "--limb", "4", "--out", str(out_path),
+                                 "--params-dir", params_dir])
+    assert line["verified"] is True and line["backend"] == "cpu+native"
+    assert (line["k"], line["enc_bits"]) == (K, 8) and line["proof_s"] > 0
+    assert set(line) == root_script_keys("bench_cpu_proxy.py", "out")
+    assert json.loads(out_path.read_text()) == line
+    assert sorted((ROOT / "params_fixtures").iterdir()) == fixtures  # nothing written there
+
+
+@pytest.mark.parametrize("with_proxy", [True, False], ids=["with-proxy", "without"])
+def test_bench_reports_the_cpu_proxy_ratio_only_when_asked(params_dir, tmp_path, monkeypatch,
+                                                           with_proxy):
+    """The MSM, keygen and prover stand in (their keys fixed), so that the
+    run checks the report alone."""
+    monkeypatch.setattr(pippenger, "msm_packed", lambda *a, **kw: None)
+    monkeypatch.setattr(benches, "cached_keygen", lambda *a: (None, 1.5))
+    monkeypatch.setattr(benches, "prove_verify", lambda *a, **kw: (
+        {"h2d": 1, "d2h": 1, "verified": True, "proof_cold_s": 3.0, "proof_s": 2.0,
+         "verify_s": 0.5, "proof_bytes": 1, "proofs_per_sec": 0.5}, b""))
+    proxy = tmp_path / "proxy.json"
+    proxy.write_text(json.dumps({"backend": "cpu+native", "k": K, "enc_bits": 8, "proof_s": 7.0,
+                                 "cpus": 4}))
+    argv = ["--device", "cpu", "--msm-log2", "4", "--mulmod-log2", "4", "--proof-k", str(K),
+            "--proof-limb", "4", "--params-dir", params_dir]
+    out = bench.main(argv + ["--proof-enc", "8"]
+                     + (["--cpu-proxy-json", str(proxy)] if with_proxy else []))
+    keys = {"cpu_proxy_proof_s", "cpu_proxy_cpus", "speedup_vs_cpu_proxy"}
+    if with_proxy:
+        assert {key: out[key] for key in keys} == {"cpu_proxy_proof_s": 7.0, "cpu_proxy_cpus": 4,
+                                                   "speedup_vs_cpu_proxy": 3.5}
+    else:
+        assert not keys & set(out)
+    with pytest.raises(ValueError, match="enc_bits=8"):  # another width: refused at once
+        bench.main(argv + ["--proof-enc", "16", "--cpu-proxy-json", str(proxy)])
+
+
+def test_profile_chip_msm_matches_the_fixture(params_dir):
+    out = profile_chip.main(["msm", "--msm-log2", str(K), "--device", "cpu",
+                             "--params-dir", params_dir])
+    assert out["timer"] == "host_clock" and out["card"] is None
+    msm = out["msm"]
+    assert msm["valid"] is True and msm["log2"] == K
+    assert list(msm["parts_ms"]) == ["recode", "sort_and_lane_table", "bucket_loop", "merge",
+                                     "window_sums", "horner"]
 
 
 def test_bench_scaling_on_cpu_shards(params_dir):

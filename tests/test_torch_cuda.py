@@ -456,3 +456,35 @@ def test_k10_proof_on_card_from_a_loaded_key_matches_fixture(dev, tmp_path, fixt
     proof = create_proof(pk2, table, fx["blinding_seed"].encode())
     assert proof.hex() == fx["proof_hex"]
     assert verify_proof(pk.vk, srs, proof)
+
+
+def test_native_ntt_backend_refuses_a_card_tensor(dev):
+    """A transform on the card never goes to the host: the default route
+    takes the port's NTT, and "native" raises."""
+    from paillier_halo2_tpu_torch.poly import ops
+    from paillier_halo2_tpu_torch.poly.ntt import ntt
+
+    k = 4
+    x = f.pack_ints(_values(ech.R, 31, 1 << k), dev)
+    ops.reset_ntt_routes()
+    assert torch.equal(ops.values_of(x, k), ntt(x, k))
+    assert ops.NTT_ROUTES == {"mesh": 0, "native": 0, "torch": 1}
+    with ops.ntt_backend("native"), pytest.raises(ValueError, match="runs on the host"):
+        ops.values_of(x, k)
+
+
+@pytest.mark.parametrize("fixture,multiopen", [("slice_enc_k10.json", "shplonk"),
+                                               ("slice_enc_k10_gwc.json", "gwc")])
+def test_k10_proof_on_card_with_every_check_matches_fixture(dev, capsys, fixture, multiopen):
+    """checks="all" on the card: every self-check passes, the proof equals
+    the JAX package's fixture and verifies (a GWC proof's openings one by
+    one too)."""
+    fx = json.loads((ROOT / "tests" / "torch_fixtures" / fixture).read_text())
+    table = _k10_table(fx)
+    srs = generate_srs(fx["k"], fx["srs_seed"].encode(), dev)
+    pk = keygen(table, fx["k"], fx["lookup_bits"], srs, multiopen=multiopen)
+    proof = create_proof(pk, table, fx["blinding_seed"].encode(), checks="all")
+    assert proof.hex() == fx["proof_hex"]
+    assert verify_proof(pk.vk, srs, proof, selfcheck=True)
+    out = capsys.readouterr().out
+    assert "[selfcheck] t degree tail: 0/" in out and "FAILS" not in out

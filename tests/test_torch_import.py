@@ -20,6 +20,7 @@ from paillier_halo2_tpu_torch.benches import (
     bench_batch,
     bench_bigenc,
     bench_scaling,
+    profile_chip,
     profile_proof,
 )
 from paillier_halo2_tpu_torch.entry import dryrun_multichip, entry
@@ -60,7 +61,9 @@ assert {{"paillier_halo2_tpu_torch.mock.prover", "paillier_halo2_tpu_torch.entry
          "paillier_halo2_tpu_torch.benches.bench_add", "paillier_halo2_tpu_torch.benches.bench_batch",
          "paillier_halo2_tpu_torch.benches.bench_bigenc",
          "paillier_halo2_tpu_torch.benches.bench_scaling",
-         "paillier_halo2_tpu_torch.benches.profile_proof"}} <= set(names)
+         "paillier_halo2_tpu_torch.benches.profile_proof",
+         "paillier_halo2_tpu_torch.benches.profile_chip",
+         "paillier_halo2_tpu_torch.benches.bench_cpu_proxy"}} <= set(names)
 assert len(names) > 40, names
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert "paillier_halo2_tpu" not in sys.modules
@@ -145,7 +148,7 @@ def _empty_table():
                                   "keygen_gwc", "save_proving_key", "load_proving_key",
                                   "make_mesh", "dryrun_multichip", "bench", "bench_add",
                                   "bench_batch", "bench_bigenc", "bench_scaling",
-                                  "profile_proof"])
+                                  "profile_proof", "profile_chip"])
 def test_entry_points_default_to_the_card(name, tmp_path):
     """Called without a device, each entry point asks for the card and
     raises where there is none; it never runs on the CPU instead. keygen
@@ -178,6 +181,8 @@ def test_entry_points_default_to_the_card(name, tmp_path):
         "bench_bigenc": lambda: bench_bigenc.main(["8", "4", "--params-dir", str(tmp_path)]),
         "bench_scaling": lambda: bench_scaling.main(["4", "--params-dir", str(tmp_path)]),
         "profile_proof": lambda: profile_proof.main(["4", "1", "--params-dir", str(tmp_path)]),
+        "profile_chip": lambda: profile_chip.main(["msm", "--msm-log2", "4",
+                                                  "--params-dir", str(tmp_path)]),
     }
     with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         calls[name]()

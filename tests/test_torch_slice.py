@@ -6,6 +6,9 @@ and blinding seed b"test-blind", SHPLONK.
 
 The port runs on the CPU here: the plain versions of its kernels, and the
 native engine for the commitments, as the JAX package commits on the CPU.
+The proof's transforms take the port's torch NTT (`ops.ntt_backend("torch")`),
+the arithmetic the card runs, not the CPU's default native NTT, so that one
+whole proof keeps that NTT covered here.
 The proof must be byte-identical and the verifying-key commitments equal. A
 commitment is a point, so the engine changes no byte (`chip_smoke.py` proves
 the same bytes on the card, commitments on the signed MSM route).
@@ -24,6 +27,7 @@ from paillier_halo2_tpu_torch.plonk.keygen import keygen
 from paillier_halo2_tpu_torch.plonk.prover import create_proof
 from paillier_halo2_tpu_torch.plonk.srs import generate_srs
 from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
+from paillier_halo2_tpu_torch.poly import ops
 
 # pytest-xdist workers share the machine's cores: each worker's torch takes
 # its share instead of all of them, so workers do not oversubscribe the CPU.
@@ -48,7 +52,10 @@ def slice_run(fx):
     assert table.n_rows == fx["n_rows"]
     srs = generate_srs(fx["k"], fx["srs_seed"].encode(), "cpu")
     pk = keygen(table, fx["k"], fx["lookup_bits"], srs)
-    proof = create_proof(pk, table, fx["blinding_seed"].encode())
+    ops.reset_ntt_routes()
+    with ops.ntt_backend("torch"):
+        proof = create_proof(pk, table, fx["blinding_seed"].encode())
+    assert ops.NTT_ROUTES["torch"] > 0 and ops.NTT_ROUTES["native"] == 0
     return pk, srs, proof
 
 
