@@ -23,7 +23,6 @@ No JAX proof is computed here: the JAX bytes come from the fixture.
 """
 import ast
 import json
-import os
 import random
 from pathlib import Path
 
@@ -54,10 +53,6 @@ from paillier_halo2_tpu_torch.plonk.prover import create_proof
 from paillier_halo2_tpu_torch.plonk.srs import read_or_create_srs
 from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
 from paillier_halo2_tpu_torch.utils.trace import PhaseTimer, profile_section
-
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "tests" / "torch_fixtures" / "batch_k10.json"

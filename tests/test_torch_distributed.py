@@ -13,11 +13,9 @@ the proof bytes must equal the fixture's, as the port's single-device key
 and proof (commitments through the native engine) do.
 """
 import json
-import os
 from pathlib import Path
 
 import pytest
-import torch
 
 from paillier_halo2_tpu_torch.bignum.host import paillier_add_native
 from paillier_halo2_tpu_torch.ec import host as ech
@@ -34,12 +32,6 @@ from paillier_halo2_tpu_torch.plonk.prover import create_proof
 from paillier_halo2_tpu_torch.plonk.srs import generate_srs
 from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
 from paillier_halo2_tpu_torch.poly import ops
-
-# pytest-xdist workers share the machine's cores: each worker's torch takes
-# its share instead of all of them, so workers do not oversubscribe the CPU.
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 FIXTURE = Path(__file__).resolve().parent / "torch_fixtures" / "dist_add_k10.json"
 
@@ -88,8 +80,8 @@ def runs(fx):
         proof_s = create_proof_sharded(mesh, pk_s, table, blind)
     finally:
         mesh_msm.msm_sharded_multi = orig
-    return {"srs": srs, "pk": pk, "proof": proof, "pk_s": pk_s, "proof_s": proof_s,
-            "calls": calls["n"]}
+    return {"table": table, "srs": srs, "pk": pk, "proof": proof, "pk_s": pk_s,
+            "proof_s": proof_s, "calls": calls["n"]}
 
 
 def test_single_device_proof_matches_fixture(fx, runs):
@@ -118,6 +110,13 @@ def test_sharded_proof_verifies(runs):
     bad[40] ^= 1
     assert not verify_proof(runs["pk_s"].vk, runs["srs"], bytes(bad))
 
+
+def test_single_device_key_proves_over_a_mesh_of_8(fx, runs):
+    """Over all eight shards, as `tests/test_distributed.py` proves over its
+    eight CPU devices: the key made on one device gives the fixture's bytes."""
+    proof = create_proof_sharded(make_mesh(8, "cpu"), runs["pk"], runs["table"],
+                                 fx["blinding_seed"].encode())
+    assert proof.hex() == fx["proof_hex"]
 
 def test_commit_many_shards_only_widths_the_mesh_divides(runs, monkeypatch):
     """Under a mesh of 4 a commitment of width 8 takes the sharded MSM, one

@@ -7,7 +7,6 @@ its 2048-lane Pallas threshold). Every comparison is exact: the values are
 integers mod p. The kernel itself is held against this plain version on the
 card in `test_torch_cuda.py`.
 """
-import os
 import re
 from pathlib import Path
 
@@ -19,12 +18,6 @@ import torch
 from paillier_halo2_tpu.ff import field_jax as fj
 from paillier_halo2_tpu_torch.ff import field as f
 from paillier_halo2_tpu_torch.ff import mulmod
-
-# pytest-xdist workers share the machine's cores: each worker's torch takes
-# its share instead of all of them, so workers do not oversubscribe the CPU.
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 LANES = 128
 SPECS = {"Fr": (f.FR, fj.FR), "Fq": (f.FQ, fj.FQ)}

@@ -14,13 +14,14 @@ import pytest
 
 from paillier_halo2_tpu.bignum import host as jbh
 from paillier_halo2_tpu.gadgets.context import Context as JContext
+from paillier_halo2_tpu.gadgets.context import merge_tables as jmerge_tables
 from paillier_halo2_tpu.gadgets.range import RangeChip as JRangeChip
 from paillier_halo2_tpu.harness import circuits as jcirc
 from paillier_halo2_tpu.plonk import layout as jlayout
 from paillier_halo2_tpu.plonk import transcript as jtr
 from paillier_halo2_tpu_torch.bignum import host as tbh
 from paillier_halo2_tpu_torch.ec import host as ech
-from paillier_halo2_tpu_torch.gadgets.context import Context
+from paillier_halo2_tpu_torch.gadgets.context import Context, merge_tables
 from paillier_halo2_tpu_torch.gadgets.range import RangeChip
 from paillier_halo2_tpu_torch.harness import circuits as tcirc
 from paillier_halo2_tpu_torch.plonk import layout as tlayout
@@ -74,6 +75,32 @@ def test_layouts_match_jax(kind, enc, limb, k, lookup_bits):
     assert np.array_equal(tlayout.witness_columns(t, lt, b"s"), jlayout.witness_columns(j, lj, b"s"))
     assert np.array_equal(tlayout.lookup_columns(t, lt), jlayout.lookup_columns(j, lj))
 
+
+def _public_table(ctx_cls, rc_cls, seed):
+    """Range-checked products of witnesses, two of them exposed publicly."""
+    prng = random.Random(seed)
+    ctx = ctx_cls()
+    rc = rc_cls(ctx, 6)
+    prod = rc.gate.mul(ctx.load_witness([prng.randrange(1, 7) for _ in range(4)]),
+                       ctx.load_witness([prng.randrange(1, 7) for _ in range(4)]))
+    rc.range_check(prod, 6)
+    ctx.expose_public(prod[1:3])
+    return ctx.finalize()
+
+
+def test_merged_tables_with_publics_match_jax():
+    """The witness pool's merge (`merge_tables`) of three tables with public
+    cells, against the JAX package's: every row index rebased by the rows
+    before it, the public cells kept in table order."""
+    t = merge_tables([_public_table(Context, RangeChip, s) for s in (1, 2, 3)])
+    j = jmerge_tables([_public_table(JContext, JRangeChip, s) for s in (1, 2, 3)])
+    for name in TABLE_FIELDS:
+        a, b = getattr(t, name), getattr(j, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    parts = [_public_table(Context, RangeChip, s) for s in (1, 2, 3)]
+    assert t.n_rows == j.n_rows == sum(x.n_rows for x in parts)
+    assert t.public_values() == j.public_values() == [v for x in parts for v in x.public_values()]
+    assert len(t.public_values()) == 6
 
 def test_transcripts_match_jax():
     prng = random.Random(9)

@@ -9,11 +9,9 @@ byte-identical.
 """
 import dataclasses
 import json
-import os
 from pathlib import Path
 
 import pytest
-import torch
 
 from paillier_halo2_tpu_torch.gadgets.context import Context
 from paillier_halo2_tpu_torch.gadgets.range import RangeChip
@@ -22,10 +20,6 @@ from paillier_halo2_tpu_torch.plonk.keygen import keygen
 from paillier_halo2_tpu_torch.plonk.prover import create_proof
 from paillier_halo2_tpu_torch.plonk.srs import generate_srs
 from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
-
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 FIXTURES = Path(__file__).resolve().parent / "torch_fixtures"
 

@@ -8,11 +8,9 @@ b"\\x21" * 32, SHPLONK. The proof must be byte-identical, verify only with
 the true public values, and the verifier must refuse a call without them.
 """
 import json
-import os
 from pathlib import Path
 
 import pytest
-import torch
 
 from paillier_halo2_tpu_torch.bignum.host import paillier_enc_native
 from paillier_halo2_tpu_torch.gadgets import (
@@ -26,10 +24,6 @@ from paillier_halo2_tpu_torch.plonk.keygen import keygen
 from paillier_halo2_tpu_torch.plonk.prover import create_proof
 from paillier_halo2_tpu_torch.plonk.srs import generate_srs
 from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
-
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 FIXTURE = Path(__file__).resolve().parent / "torch_fixtures" / "instance_enc_k10.json"
 

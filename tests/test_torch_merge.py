@@ -9,7 +9,6 @@ the halving tree's own operand order; and the wrapper's input checks.
 The kernel itself is held against the plain version on the card in
 `test_torch_cuda.py` and by `chip_smoke.py`.
 """
-import os
 import random
 
 import numpy as np
@@ -21,12 +20,6 @@ from paillier_halo2_tpu_torch.ec import lazy_point as lp
 from paillier_halo2_tpu_torch.ff import field as f
 from paillier_halo2_tpu_torch.ff import lazy_mont as lz
 from paillier_halo2_tpu_torch.msm import pippenger as pip
-
-# pytest-xdist workers share the machine's cores: each worker's torch takes
-# its share instead of all of them, so workers do not oversubscribe the CPU.
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 Q = ech.Q
 RM = (1 << 256) % Q

@@ -10,7 +10,6 @@ on 8 virtual CPU devices (`tests/conftest.py`), the port's shards all live
 on the CPU (`make_mesh(n, "cpu")`), where each shard runs the plain versions
 of the kernels.
 """
-import os
 import random
 
 import jax.numpy as jnp
@@ -31,12 +30,6 @@ from paillier_halo2_tpu_torch.mesh import ntt as mntt
 from paillier_halo2_tpu_torch.mesh.msm import msm_sharded_multi
 from paillier_halo2_tpu_torch.mesh.sharding import all_to_all, make_mesh, make_mesh_2d, shard_batch
 from paillier_halo2_tpu_torch.poly.ntt import ntt
-
-# pytest-xdist workers share the machine's cores: each worker's torch takes
-# its share instead of all of them, so workers do not oversubscribe the CPU.
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 
 def _fr_values(seed: int, count: int) -> list[int]:

@@ -8,7 +8,6 @@ tampered tables, one-shot and chunked, with tampered rows in a chunk's
 3-row overlap and at a chunk's first row.
 """
 import dataclasses
-import os
 import random
 
 import jax
@@ -37,12 +36,6 @@ from paillier_halo2_tpu_torch.gadgets.context import VirtualTable
 from paillier_halo2_tpu_torch.harness.base_test import base_test
 from paillier_halo2_tpu_torch.harness.circuits import PaillierEncryptionInput, paillier_enc_test
 from paillier_halo2_tpu_torch.mock import prover as tmock
-
-# pytest-xdist workers share the machine's cores: each worker's torch takes
-# its share instead of all of them, so workers do not oversubscribe the CPU.
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 FIELDS = ("satisfied", "gate_failures", "lookup_failures", "copy_failures", "const_failures")
 

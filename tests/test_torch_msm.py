@@ -9,7 +9,6 @@ commitment runs the native engine. A commitment is a point, so every route
 and window width must give the same result.
 """
 import json
-import os
 import random
 from pathlib import Path
 
@@ -27,12 +26,6 @@ from paillier_halo2_tpu_torch.ff import field as f
 from paillier_halo2_tpu_torch.msm import pippenger as pip
 from paillier_halo2_tpu_torch.plonk import kzg
 from paillier_halo2_tpu_torch.plonk.srs import generate_srs
-
-# pytest-xdist workers share the machine's cores: each worker's torch takes
-# its share instead of all of them, so workers do not oversubscribe the CPU.
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 FIXTURES = Path(__file__).resolve().parents[1] / "params_fixtures"
 

@@ -5,8 +5,6 @@ oracle `poly/ntt.py::ntt_host`, and the route each `ntt_backend` takes.
 Inputs are random Fr values from a numpy seed (plus zeros and p-1), in
 Montgomery form as the prover holds them; every comparison is exact.
 """
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -18,10 +16,6 @@ from paillier_halo2_tpu_torch.ff import host
 from paillier_halo2_tpu_torch.mesh.sharding import make_mesh
 from paillier_halo2_tpu_torch.poly import ops
 from paillier_halo2_tpu_torch.poly.ntt import ntt
-
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 P = host.FR_MOD
 R = f.FR.r_mod_p

@@ -10,7 +10,6 @@ contract-breaking lanes are checked against the port's own rule: they
 degrade to Z == 0. The kernels themselves are held against these plain
 versions on the card in `test_torch_cuda.py`.
 """
-import os
 import random
 
 import jax.numpy as jnp
@@ -24,12 +23,6 @@ from paillier_halo2_tpu_torch.ec import bn254 as tb
 from paillier_halo2_tpu_torch.ec import host as ech
 from paillier_halo2_tpu_torch.ec import point_kernels as pk
 from paillier_halo2_tpu_torch.ff import field as f
-
-# pytest-xdist workers share the machine's cores: each worker's torch takes
-# its share instead of all of them, so workers do not oversubscribe the CPU.
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 LANES = 64
 Q = ech.Q

@@ -5,12 +5,9 @@ and every `poly/ops` function against its JAX counterpart at k <= 8.
 Inputs are random Fr values from a numpy seed (plus zeros and p-1); every
 comparison is exact.
 """
-import os
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from paillier_halo2_tpu.poly import ntt as jntt
 from paillier_halo2_tpu.poly import ops as jops
@@ -19,12 +16,6 @@ from paillier_halo2_tpu_torch.ff import host
 from paillier_halo2_tpu_torch.poly import ops
 from paillier_halo2_tpu_torch.poly.domain import Domain
 from paillier_halo2_tpu_torch.poly.ntt import ntt, ntt_host
-
-# pytest-xdist workers share the machine's cores: each worker's torch takes
-# its share instead of all of them, so workers do not oversubscribe the CPU.
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 P = host.FR_MOD
 

@@ -12,7 +12,6 @@ closing checks on an unsatisfied witness.
 """
 import dataclasses
 import json
-import os
 import random
 from pathlib import Path
 
@@ -20,20 +19,22 @@ import numpy as np
 import pytest
 import torch
 
+from paillier_halo2_tpu_torch.bignum.host import paillier_add_native
 from paillier_halo2_tpu_torch.ff import field as f
 from paillier_halo2_tpu_torch.ff import host
 from paillier_halo2_tpu_torch.gadgets.context import Context
 from paillier_halo2_tpu_torch.gadgets.range import RangeChip
-from paillier_halo2_tpu_torch.harness.circuits import PaillierEncryptionInput, paillier_enc_test
+from paillier_halo2_tpu_torch.harness.circuits import (
+    PaillierAddCipherInput,
+    PaillierEncryptionInput,
+    paillier_enc_add_test,
+    paillier_enc_test,
+)
 from paillier_halo2_tpu_torch.plonk import prover
 from paillier_halo2_tpu_torch.plonk.keygen import keygen
 from paillier_halo2_tpu_torch.plonk.srs import generate_srs
 from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
 from paillier_halo2_tpu_torch.poly import ops
-
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 FIXTURES = Path(__file__).resolve().parent / "torch_fixtures"
 NAMES = {"shplonk": "slice_enc_k10.json", "gwc": "slice_enc_k10_gwc.json"}
@@ -83,6 +84,38 @@ def test_checked_proof_equals_fixture(setup, capsys, multiopen, checks):
                                            for x in lines[1:])
 
 
+def test_multicolumn_proof_passes_every_check(capsys):
+    """`tests/test_plonk.py::test_quotient_degree_selfcheck_multicolumn` on
+    the port: three additions at k=9 span several advice columns and
+    permutation chunks; the proof passes every self-check, verifies and
+    equals the JAX package's bytes (`torch_fixtures/multicolumn_add_k9.json`)."""
+    fx = json.loads((FIXTURES / "multicolumn_add_k9.json").read_text())
+    prng = random.Random(31337)
+    ctx = Context()
+    rc = RangeChip(ctx, 8)
+    inputs = []
+    for _ in range(3):
+        n = prng.getrandbits(16) | (1 << 15) | 1
+        g, c1, c2 = (prng.getrandbits(16) for _ in range(3))
+        inp = PaillierAddCipherInput(limb_bits=8, enc_bits=16, n=n, g=g, c1=c1, c2=c2,
+                                     res=paillier_add_native(n, c1, c2))
+        paillier_enc_add_test(ctx, rc, inp)
+        inputs.append({key: getattr(inp, key) for key in ("n", "g", "c1", "c2", "res")})
+    assert fx["inputs"] == inputs
+    table = ctx.finalize()
+    assert table.n_rows == fx["n_rows"]
+    srs = generate_srs(9, fx["srs_seed"].encode(), "cpu")
+    pk = keygen(table, 9, 8, srs)
+    assert (pk.vk.num_advice, pk.vk.num_lookup_advice) == (fx["num_advice"], fx["num_lookup_advice"])
+    assert pk.vk.num_advice >= 2 and len(pk.vk.perm_chunks) > 1
+    proof = prover.create_proof(pk, table, fx["blinding_seed"].encode(), checks="all")
+    lines = [x for x in capsys.readouterr().out.splitlines() if x.startswith("[selfcheck]")]
+    assert lines == ["[selfcheck] t degree tail: 0/512 nonzero coeffs past 3n (ok)",
+                     "[selfcheck] shplonk L(u) == 0: True"]
+    assert proof.hex() == fx["proof_hex"]
+    assert verify_proof(pk.vk, srs, proof)
+
+
 def test_degree_tail_check():
     n = 16
     t = torch.zeros((8, 4 * n), dtype=torch.int32)
@@ -116,6 +149,38 @@ def test_gwc_set_check():
     with pytest.raises(ValueError, match="GWC self-check failed at wx"):
         prover._check_gwc_set(ev, "wx", _mont(coeffs), z, [e1, (e2 + 1) % P], nu)
 
+
+def test_fused_gate_slab_matches_its_formula_pointwise():
+    """`_fused_gates`, the quotient's gate slab, against its formula in host
+    ints: on each point x of the extended coset g*H_ext,
+    acc(x) * y^m + sum_i q_i(x) * (a_i(x) + a_i(wx) a_i(w^2 x) - a_i(w^3 x)) * y^(m-1-i)
+    with every polynomial evaluated at x directly (`test_fused_quotient.py`
+    holds the JAX package's slab against its unfused quotient)."""
+    k, k_ext, m = 3, 5, 3
+    prng = random.Random(3)
+    q = [[prng.randrange(P) for _ in range(1 << k)] for _ in range(m)]
+    a = [[prng.randrange(P) for _ in range(1 << k)] for _ in range(m)]
+    acc = [prng.randrange(P) for _ in range(1 << k_ext)]
+    y = prng.randrange(P)
+    got = prover._fused_gates(
+        k, k_ext, torch.stack([_mont(c) for c in q], dim=1), torch.stack([_mont(c) for c in a], dim=1),
+        _mont(acc), _mont([pow(y, m - 1 - i, P) for i in range(m)])[:, :, None], _mont([pow(y, m, P)]))
+    w_ext = host.root_of_unity(k_ext)
+    w = host.root_of_unity(k)
+    assert w == pow(w_ext, 1 << (k_ext - k), P)
+
+    def ev(coeffs, x):
+        return sum(c * pow(x, j, P) for j, c in enumerate(coeffs)) % P
+
+    want = []
+    for idx in range(1 << k_ext):
+        x = host.FR_GENERATOR * pow(w_ext, idx, P) % P
+        out = acc[idx] * pow(y, m, P)
+        for i in range(m):
+            ax = [ev(a[i], x * pow(w, s, P) % P) for s in range(4)]
+            out += ev(q[i], x) * (ax[0] + ax[1] * ax[2] - ax[3]) * pow(y, m - 1 - i, P)
+        want.append(out % P)
+    assert ops.from_device_mont(got) == want
 
 def test_unknown_check_level_raises(setup):
     _, table, _, pks = setup

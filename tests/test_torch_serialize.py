@@ -8,7 +8,6 @@ graph. Also: the port's `v2` fingerprint, and the load errors.
 """
 import dataclasses
 import json
-import os
 from pathlib import Path
 
 import numpy as np
@@ -28,11 +27,8 @@ from paillier_halo2_tpu_torch.plonk.serialize import (
     table_fingerprint,
 )
 from paillier_halo2_tpu_torch.plonk.srs import generate_srs
+from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
 from paillier_halo2_tpu_torch.poly import ops
-
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 FIXTURE = Path(__file__).resolve().parent / "torch_fixtures" / "slice_enc_k10.json"
 P = ops.P
@@ -87,6 +83,25 @@ def test_port_save_load_gives_the_fixture(fx, key):
     assert list(pk2.layout.fixed_const) == list(pk.layout.fixed_const)
     proof = create_proof(pk2, table, fx["blinding_seed"].encode())
     assert proof.hex() == fx["proof_hex"]
+
+
+def test_gwc_key_round_trip_proves_the_gwc_fixture(key, tmp_path):
+    """A GWC key through save and load (`tests/test_serialize.py` takes a key
+    of the JAX package the same way): the scheme survives in the key's meta,
+    and the loaded key proves the GWC fixture's bytes, which the saved
+    key's vk verifies."""
+    table, srs, pk, _, _ = key
+    fx = json.loads((FIXTURE.parent / "slice_enc_k10_gwc.json").read_text())
+    # the schemes' keys differ in `vk.multiopen` alone (`tests/test_torch_gwc.py`)
+    gwc = dataclasses.replace(pk, vk=dataclasses.replace(pk.vk, multiopen="gwc"))
+    fp = table_fingerprint(table, fx["k"], fx["lookup_bits"], "gwc")
+    path = str(tmp_path / "pk_gwc.npz")
+    save_proving_key(gwc, path, table_fp=fp)
+    loaded = load_proving_key(path, srs, expect_table_fp=fp, device="cpu")
+    assert dataclasses.asdict(loaded.vk) == dataclasses.asdict(gwc.vk)
+    proof = create_proof(loaded, table, fx["blinding_seed"].encode())
+    assert proof.hex() == fx["proof_hex"]
+    assert verify_proof(gwc.vk, srs, proof)
 
 
 def _jax_srs(srs):

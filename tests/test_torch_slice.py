@@ -14,11 +14,9 @@ commitment is a point, so the engine changes no byte (`chip_smoke.py` proves
 the same bytes on the card, commitments on the signed MSM route).
 """
 import json
-import os
 from pathlib import Path
 
 import pytest
-import torch
 
 from paillier_halo2_tpu_torch.gadgets.context import Context
 from paillier_halo2_tpu_torch.gadgets.range import RangeChip
@@ -28,12 +26,6 @@ from paillier_halo2_tpu_torch.plonk.prover import create_proof
 from paillier_halo2_tpu_torch.plonk.srs import generate_srs
 from paillier_halo2_tpu_torch.plonk.verifier import verify_proof
 from paillier_halo2_tpu_torch.poly import ops
-
-# pytest-xdist workers share the machine's cores: each worker's torch takes
-# its share instead of all of them, so workers do not oversubscribe the CPU.
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 FIXTURE = Path(__file__).resolve().parent / "torch_fixtures" / "slice_enc_k10.json"
 

@@ -5,8 +5,6 @@ Jacobian digits of the JAX package's `batched_fixed_base_mul`, and each
 package reads the npz cache the other wrote (same name, same digits-first
 format).
 """
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -18,12 +16,6 @@ from paillier_halo2_tpu_torch.ec import point_kernels as pk
 from paillier_halo2_tpu_torch.ff import field as f
 from paillier_halo2_tpu_torch.ff.host import FR_MOD
 from paillier_halo2_tpu_torch.plonk import srs as tsrs
-
-# pytest-xdist workers share the machine's cores: each worker's torch takes
-# its share instead of all of them, so workers do not oversubscribe the CPU.
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 K = 6
 SEED = b"plonk-test"

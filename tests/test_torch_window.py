@@ -7,7 +7,6 @@ interpret mode on the CPU), and the wrappers' input checks.
 The kernels themselves are held against these plain versions on the card in
 `test_torch_cuda.py` and by `chip_smoke.py`.
 """
-import os
 import random
 
 import jax.numpy as jnp
@@ -24,10 +23,6 @@ from paillier_halo2_tpu_torch.ec import lazy_point as lp
 from paillier_halo2_tpu_torch.ec import point_kernels as pk
 from paillier_halo2_tpu_torch.ff import field as f
 from paillier_halo2_tpu_torch.msm import pippenger as pip
-
-torch.set_num_threads(
-    max(1, len(os.sched_getaffinity(0)) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-)
 
 Q = ech.Q
 RM = (1 << 256) % Q

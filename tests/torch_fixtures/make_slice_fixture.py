@@ -23,9 +23,20 @@ proof bytes in hex:
   (ENC=8/LIMB=4, which halves the CPU proof's columns against ENC=16;
   instance i from `random.Random(1 + i)`, as its `synth_one`) merged by
   `SinglePhaseCoreManager.synth_parallel`, K=10, lookup_bits=9, the
-  seed-b"" SRS, blinding seed b"batch-test", SHPLONK.
+  seed-b"" SRS, blinding seed b"batch-test", SHPLONK;
+- `bench`: `bench_enc_k10.json`, the encryption circuit of
+  `tests/test_bench_harness.py::test_bench_builder_enc` (inputs from the
+  first draws of `random.Random(14)`) as `harness.bench.bench_builder`
+  proves it: the seed-b"" SRS that `read_or_create_srs` caches, keygen on
+  the shape table, blinding seed b"bench-enc" (the harness draws fresh
+  randomness; the port's test passes this seed in), SHPLONK;
+- `multicolumn`: `multicolumn_add_k9.json`, the circuit of
+  `tests/test_plonk.py::test_quotient_degree_selfcheck_multicolumn`: three
+  Paillier additions (inputs from `random.Random(31337)`) at K=9,
+  lookup_bits=8, wide enough for several advice columns, SRS seed
+  b"plonk-test-mc", blinding seed b"degree-check-mc", SHPLONK.
 
-Run from the repository root, naming the fixtures to write (all five by
+Run from the repository root, naming the fixtures to write (all seven by
 default):
 
     JAX_PLATFORMS=cpu python tests/torch_fixtures/make_slice_fixture.py gwc instance
@@ -76,6 +87,8 @@ BLIND_SEED = b"test-blind"
 INSTANCE_SEED, INSTANCE_BLIND = 23, b"\x21" * 32
 DIST_SEED, DIST_BLIND = 2024, b"dist-test"
 BATCH, BATCH_SEED, BATCH_BLIND, BATCH_ENC, BATCH_LIMB = 2, 1, b"batch-test", 8, 4
+BENCH_SEED, BENCH_BLIND = 14, b"bench-enc"
+MC_SEED, MC_K, MC_LOOKUP_BITS, MC_BLIND = 31337, 9, 8, b"degree-check-mc"
 
 
 def circuit_input(seed: int = SEED) -> PaillierEncryptionInput:
@@ -115,11 +128,22 @@ def instance_table(seed: int = INSTANCE_SEED):
 def add_table(seed: int = DIST_SEED):
     """`tests/test_distributed.py::_add_table`: two Paillier additions, the
     i-th from `random.Random(seed + i)`. Returns (inputs, table)."""
+    return _additions([random.Random(seed + i) for i in range(2)], LOOKUP_BITS)
+
+
+def multicolumn_table():
+    """Three Paillier additions drawn in turn from `random.Random(MC_SEED)`,
+    lookup_bits=8. Returns (inputs, table)."""
+    return _additions([random.Random(MC_SEED)] * 3, MC_LOOKUP_BITS)
+
+
+def _additions(rngs, lookup_bits: int):
+    """One Paillier addition per generator in `rngs`, each drawing n, g,
+    c1 and c2. Returns (inputs, table)."""
     ctx = Context()
-    rc = RangeChip(ctx, LOOKUP_BITS)
+    rc = RangeChip(ctx, lookup_bits)
     inputs = []
-    for i in range(2):
-        rng = random.Random(seed + i)
+    for rng in rngs:
         n = rng.getrandbits(ENC) | (1 << (ENC - 1)) | 1
         g, c1, c2 = (rng.getrandbits(ENC) for _ in range(3))
         inp = PaillierAddCipherInput(limb_bits=LIMB, enc_bits=ENC, n=n, g=g, c1=c1, c2=c2,
@@ -154,6 +178,7 @@ def batch_table():
 
 def make(which: str) -> None:
     t0 = time.monotonic()
+    k, lookup_bits = K, LOOKUP_BITS
     if which == "instance":
         inputs, table = instance_table()
         input_seed, srs_seed, blind = INSTANCE_SEED, b"", INSTANCE_BLIND
@@ -163,18 +188,24 @@ def make(which: str) -> None:
     elif which == "batch":
         inputs, table = batch_table()
         input_seed, srs_seed, blind = BATCH_SEED, b"", BATCH_BLIND
+    elif which == "multicolumn":
+        inputs, table = multicolumn_table()
+        input_seed, srs_seed, blind = MC_SEED, b"plonk-test-mc", MC_BLIND
+        k, lookup_bits = MC_K, MC_LOOKUP_BITS
     else:
-        inp = circuit_input()
+        inp = circuit_input(BENCH_SEED if which == "bench" else SEED)
         inputs = {key: getattr(inp, key) for key in ("n", "g", "m", "r", "res")}
         ctx = Context()
         paillier_enc_test(ctx, RangeChip(ctx, LOOKUP_BITS), inp)
         table = ctx.finalize()
         input_seed, srs_seed, blind = SEED, SRS_SEED, BLIND_SEED
+        if which == "bench":
+            input_seed, srs_seed, blind = BENCH_SEED, b"", BENCH_BLIND
     if which == "gwc":
         os.environ["PAILLIER_TPU_MULTIOPEN"] = "gwc"
     try:
-        srs = generate_srs(K, seed=srs_seed)
-        pk = keygen(table, K, LOOKUP_BITS, srs)
+        srs = generate_srs(k, seed=srs_seed)
+        pk = keygen(table, k, lookup_bits, srs)
     finally:
         os.environ.pop("PAILLIER_TPU_MULTIOPEN", None)
     proof = create_proof(pk, table, blinding_seed=blind)
@@ -182,8 +213,8 @@ def make(which: str) -> None:
     assert verify_proof(pk.vk, srs, proof, instances=publics), "reference proof does not verify"
     vk = pk.vk
     out = {
-        "k": K,
-        "lookup_bits": LOOKUP_BITS,
+        "k": k,
+        "lookup_bits": lookup_bits,
         "enc_bits": BATCH_ENC if which == "batch" else ENC,
         "limb_bits": BATCH_LIMB if which == "batch" else LIMB,
         "input_seed": input_seed,
@@ -214,7 +245,8 @@ def make(which: str) -> None:
 
 FIXTURES = {"slice": "slice_enc_k10.json", "gwc": "slice_enc_k10_gwc.json",
             "instance": "instance_enc_k10.json", "dist": "dist_add_k10.json",
-            "batch": "batch_k10.json"}
+            "batch": "batch_k10.json", "bench": "bench_enc_k10.json",
+            "multicolumn": "multicolumn_add_k9.json"}
 
 
 def main() -> None:
