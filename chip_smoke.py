@@ -18,9 +18,10 @@ Phases:
    product (`cuobjdump --dump-sass`) and its rate in a loop of chained
    products, checked against the host;
 2. hold every kernel against its plain PyTorch version on the card, exactly,
-   at the main path's shapes (2^16 lanes for the Montgomery products, 2^14
-   for the point adds) with edge lanes, and time both; the redundant-form
-   kernels K5-K7, canonicalised, also equal K4, K2 and K1 on the same inputs;
+   at the main path's shapes (2^16 lanes for the Montgomery products and the
+   field adds and subs, 2^14 for the point adds) with edge lanes, and time
+   both; the redundant-form kernels K5-K7, canonicalised, also equal K4, K2
+   and K1 on the same inputs;
 3. a 2^14-point MSM on the seed-b"" SRS equals
    `params_fixtures/bench_msm_expected_14.json` on both routes: signed
    windows (the bucket-loop, merge and window-sum kernels, one launch of
@@ -37,11 +38,12 @@ Phases:
    encryption circuit at k=14, lookup_bits=13 — SRS generated on the card
    into a fresh directory, keygen, witness, proof, verify — with every
    kernel's launch count taken over this run alone (one comb launch, one
-   launch of each loop kernel per MSM call, no K3, K5, K6 or K2 step); the
-   comb kernel is held against its plain version on the SRS's scalars and
-   the three loop kernels on the first MSM call's inputs (its lane table,
-   accumulators and buckets), timed there, and the kernels line takes their
-   entries from this comparison;
+   launch of each loop kernel per MSM call, no K3, K5, K6 or K2 step, no
+   operand of the field add/sub kernel copied); the comb kernel is held
+   against its plain version on the SRS's scalars and the three loop
+   kernels on the first MSM call's inputs (its lane table, accumulators and
+   buckets), timed there, and the kernels line takes their entries from
+   this comparison;
 6. the MSM 2^20 entry (bench.py's headline phase): the seed-b"" SRS generated
    at k = 20 on the card, bench.py's scalars, the signed route (c = 11) and
    the unsigned route (window 8), each equal to
@@ -147,11 +149,14 @@ Phases:
    equal, and `verify_proof(selfcheck=True)` accepts it opening by
    opening. Over (a) and (b) each loop kernel launches once per bucket
    pass, no K3, K5, K6 or K2 step runs, the loop kernels are held against
-   their plain versions on (a)'s first MSM call and K1 on the widest
-   operands; (c) `benches.profile_chip` (all four phases: the copy rate,
-   K1 and K7 at 2^20 lanes, K4's and K2's adds at 2^16, the signed MSM at
-   2^20 whole and by part, its point equal to the fixture) on phase 12's
-   k=20 SRS (generated here when phase 12 does not run). No NTT of phase 5
+   their plain versions on (a)'s first MSM call, K1 and the field add/sub
+   kernel on their widest operands (the add's as the prover laid them out,
+   broadcast or strided), and each proof's SHA-256 is printed, so that two
+   checkouts' proofs can be compared; (c) `benches.profile_chip` (all four
+   phases: the copy rate, K1 and K7 at 2^20 lanes, K4's and K2's adds at
+   2^16, the signed MSM at 2^20 whole and by part, its point equal to the
+   fixture) on phase 12's k=20 SRS (generated here when phase 12 does not
+   run). No NTT of phase 5
    or 13 takes the native route (`poly.ops.NTT_ROUTES`): a transform on
    the card never goes to the host.
 
@@ -175,7 +180,9 @@ scale-out.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import math
 import os
 import random
 import shutil
@@ -210,6 +217,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                    "paillier_halo2_tpu/ec/lazy_point.py:220"),
     "fixed_base_comb": ("paillier_halo2_tpu_torch/csrc/g1_add.cu",
                         "paillier_halo2_tpu/ec/pallas_point.py:265"),
+    "field_addsub": ("paillier_halo2_tpu_torch/csrc/field_addsub.cu",
+                     "none: the Python carry loops of ff/field.py (XLA's in the JAX package)"),
 }
 # Where each kernel's launches are counted: the main path (phase 5) unless
 # named here. K3's, K4's, K5's and K6's one-step kernels are the JAX
@@ -248,6 +257,7 @@ WORK = {
     "g1_madd": (11, 7, 5 * 32 + 1 + 3 * 32),
     "g1_madd_packed": (11, 7, 3 * 32 + 64 + 1 + 3 * 32),
     "padd_mixed_packed_lazy": (11, 0, 3 * 32 + 64 + 2 + 3 * 32),
+    "field_addsub": (0, 0, 3 * 32),
 }
 MAIN_K, MAIN_LOOKUP_BITS, MAIN_ENC, MAIN_LIMB = 14, 13, 128, 64
 # Phase 8: the reference's MockProver geometries (tests/test_gadgets.py's
@@ -475,6 +485,52 @@ def check_mont_mul(dev, results: dict) -> None:
         if spec is f.FR:  # the prover's field: the main path's bulk of products
             entry.update(ms=ms, plain_ms=plain_ms, device_ms=dev_ms, lanes=n, double_lanes=0)
     results["mont_mul"] = entry
+
+
+def check_field_addsub(dev, results: dict) -> None:
+    """The field add/sub kernel against `add_plain` / `sub_plain` at 2^16
+    lanes, both fields and both operations, edge lanes first; timed on Fr's
+    add."""
+    import numpy as np
+    import torch
+
+    from paillier_halo2_tpu_torch.ff import field as f
+
+    n = 1 << 16
+    rng = np.random.default_rng(3)
+    entry = {"max_abs_err": 0}
+    for spec in (f.FR, f.FQ):
+        edge = [0, 1, spec.p - 1, spec.p - 2, spec.r_mod_p]
+        words = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+        xs = [int.from_bytes(np.asarray(w, np.uint32).tobytes(), "little") % spec.p for w in words]
+        ys = xs[1:] + xs[:1]
+        for i, (u, v) in enumerate((u, v) for u in edge for v in edge + [spec.p - u]):
+            xs[i], ys[i] = u, v % spec.p
+        a, b = f.pack_ints(xs, dev), f.pack_ints(ys, dev)
+        for op, sign in (("add", 1), ("sub", -1)):
+            before = f.LAUNCHES[op]
+            out = getattr(f, op)(spec, a, b)
+            ref = getattr(f, op + "_plain")(spec, a, b)
+            torch.cuda.synchronize()
+            require(f.LAUNCHES[op] == before + 1, f"{op}({spec.name}) did not launch once")
+            require(torch.equal(out, ref), f"{op}({spec.name}) differs from its plain version")
+            require(f.unpack_ints(out[:, :64]) == [(x + sign * y) % spec.p
+                                                   for x, y in zip(xs[:64], ys[:64])],
+                    f"{op}({spec.name}) differs from Python ints")
+            entry["max_abs_err"] = max(entry["max_abs_err"], max_abs_err([out], [ref]))
+        if spec is f.FR:
+            entry.update(addsub_timing(lambda: f.add(spec, a, b), lambda: f.add_plain(spec, a, b),
+                                       n))
+            log(f"  field add Fr 2^16 lanes: equal, kernel {entry['ms']} ms per call "
+                f"({entry['device_ms']} ms on the device), plain {entry['plain_ms']} ms")
+    require(f.LAUNCHES["copied"] == 0, "the field add/sub kernel copied a contiguous operand")
+    results["field_addsub"] = entry
+
+
+def addsub_timing(kernel_fn, plain_fn, lanes: int) -> dict:
+    return {"lanes": lanes, "double_lanes": 0, "ms": cuda_ms(kernel_fn, 50),
+            "plain_ms": cuda_ms(plain_fn, 5),
+            "device_ms": device_ms(kernel_fn, 20, "field_addsub_kernel")}
 
 
 def _point_lanes(n: int, seed: int):
@@ -911,10 +967,10 @@ class LoopCaptures:
 
 def zero_counts() -> None:
     from paillier_halo2_tpu_torch.ec import lazy_point, point_kernels
-    from paillier_halo2_tpu_torch.ff import lazy_mont, mulmod
+    from paillier_halo2_tpu_torch.ff import field, lazy_mont, mulmod
 
     for counts in (mulmod.LAUNCHES, point_kernels.LAUNCHES, lazy_point.LAUNCHES,
-                   lazy_mont.LAUNCHES):
+                   lazy_mont.LAUNCHES, field.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -923,11 +979,12 @@ def read_counts() -> dict:
     import torch
 
     from paillier_halo2_tpu_torch.ec import lazy_point, point_kernels
-    from paillier_halo2_tpu_torch.ff import lazy_mont, mulmod
+    from paillier_halo2_tpu_torch.ff import field, lazy_mont, mulmod
 
     torch.cuda.synchronize()
     return {**mulmod.LAUNCHES, **point_kernels.LAUNCHES, **lazy_point.LAUNCHES,
-            **lazy_mont.LAUNCHES}
+            **lazy_mont.LAUNCHES, **field.LAUNCHES,
+            "field_addsub": field.LAUNCHES["add"] + field.LAUNCHES["sub"]}
 
 
 def bench_scalars(k: int, dev):
@@ -2036,6 +2093,54 @@ def check_prover_launches(label: str, counts: dict, msm_calls: int, passes: int,
     require(counts["mont_mul"] > 0, f"{label} launched no K1")
 
 
+class CaptureWidestAdd(CaptureCall):
+    """While active, keeps the arguments of the `ff.field.add` call with the
+    widest output, as the caller laid them out (views kept, not copied)."""
+
+    def __init__(self):
+        from paillier_halo2_tpu_torch.ff import field
+
+        super().__init__(field, "add", -1)
+        self.lanes = 0
+
+    def __enter__(self):
+        fn = self.orig = self.module.add
+
+        def wrapped(spec, a, b):
+            out = fn(spec, a, b)
+            if out.numel() // 8 > self.lanes:
+                self.args, self.lanes = (spec, a, b), out.numel() // 8
+            self.seen += 1
+            return out
+
+        self.module.add = wrapped
+        return self
+
+
+def check_addsub_widest(cap, where: str) -> dict:
+    """The field add kernel on the widest operands a run gave it, against its
+    plain version."""
+    import torch
+
+    from paillier_halo2_tpu_torch.ff import field as f
+
+    spec, a, b = cap.args
+    out, ref = f.add(spec, a, b), f.add_plain(spec, a, b)
+    torch.cuda.synchronize()
+    require(torch.equal(out, ref), f"the field add differs from its plain version on {where}")
+    # bytes: each distinct element of a and b read once (a broadcast operand
+    # holds fewer than the output's lanes), the output written once
+    distinct = [math.prod(n for n, st in zip(t.shape[1:], t.stride()[1:]) if st) for t in (a, b)]
+    entry = {"max_abs_err": max_abs_err([out], [ref]), "ops": 0,
+             "bytes": 32 * (cap.lanes + sum(distinct)),
+             **addsub_timing(lambda: f.add(spec, a, b), lambda: f.add_plain(spec, a, b),
+                             cap.lanes)}
+    log(f"  field add on {where} ({tuple(a.shape)} + {tuple(b.shape)}, strides {a.stride()}, "
+        f"{b.stride()}; {cap.lanes} lanes): equal to its plain version; kernel {entry['ms']} ms "
+        f"per call ({entry['device_ms']} ms on the device), plain {entry['plain_ms']} ms")
+    return entry
+
+
 def check_k1_widest(k1_cap, where: str) -> dict:
     """K1 on the widest operands a run gave it, against its plain version."""
     import torch
@@ -2219,7 +2324,8 @@ def run_checks_phase(dev, params_dir: str, srs_generated_here: bool, imad_per_s:
         ok, t_verify = timed(lambda: verify_proof(pk.vk, srs, proof))
         require(ok, "the k=14 self-checked proof does not verify")
         log(f"  (a) k={MAIN_K} ENC={MAIN_ENC}, one key and seed: proofs byte-identical at every "
-            f"level ({len(proof)} bytes) and verified ({t_verify:.4f} s); seconds in "
+            f"level ({len(proof)} bytes, SHA-256 {hashlib.sha256(proof).hexdigest()}) and "
+            f"verified ({t_verify:.4f} s); seconds in "
             f"{PHASE13_ROUNDS} rounds: " + ", ".join(
                 f"checks={level!r} " + " ".join(f"{t:.4f}" for t in secs[level])
                 for level in CHECK_LEVELS[::-1]))
@@ -2232,19 +2338,23 @@ def run_checks_phase(dev, params_dir: str, srs_generated_here: bool, imad_per_s:
         ok, t_verify = timed(lambda: verify_proof(pk.vk, srs, heavy, selfcheck=True))
         require(ok, "the GWC add proof does not verify opening by opening")
         log(f"  (b) add circuit, k={MAIN_K}, GWC: checks='all' {t_heavy:.4f} s, 'closing' "
-            f"{t_plain:.4f} s, equal ({len(heavy)} bytes); verify_proof(selfcheck=True) "
+            f"{t_plain:.4f} s, equal ({len(heavy)} bytes, SHA-256 "
+            f"{hashlib.sha256(heavy).hexdigest()}); verify_proof(selfcheck=True) "
             f"{t_verify:.4f} s, every opening ok")
 
-    _, counts, cap, k1_cap, msm_calls, passes = counted_run(checked_proofs)
+    with CaptureWidestAdd() as add_cap:
+        _, counts, cap, k1_cap, msm_calls, passes = counted_run(checked_proofs)
     check_prover_launches("(a) and (b)", counts, msm_calls, passes, int(srs_generated_here))
+    require(counts["copied"] == 0, "(a) and (b) copied an operand of the field add/sub")
     names = ["bucket_loop_lazy", "merge_lazy", "window_sums",
              *(["fixed_base_comb"] if srs_generated_here else [])]
     results = check_loop_kernels(cap.captured(*names), "(a)'s first MSM call", imad_per_s)
     results["mont_mul"] = check_k1_widest(k1_cap, "(a)'s and (b)'s widest operands")
+    results["field_addsub"] = check_addsub_widest(add_cap, "(a)'s and (b)'s widest operands")
     entries = [kernel_entry(name, results[name], counts[name],
                             f"phase 13 (a) and (b), self-checked proofs at k={MAIN_K}", imad_per_s)
-               for name in ("mont_mul", *names)]
-    del cap, k1_cap
+               for name in ("mont_mul", "field_addsub", *names)]
+    del cap, k1_cap, add_cap
     torch.cuda.empty_cache()
 
     # (c) profile_chip: every phase, the MSM on phase 12's SRS
@@ -2336,6 +2446,7 @@ def main() -> int:
         check_points(dev, results)
         check_mont_mul_lazy(dev, results)
         check_lazy_points(dev, results)
+        check_field_addsub(dev, results)
     if 3 in phases:
         log("[3] MSM 2^14, signed and unsigned routes")
         unsigned = check_msm(dev, results, imad_per_s)
@@ -2371,8 +2482,10 @@ def main() -> int:
         require(all(main_counts[name] == 0 for name in
                     ("g1_madd", "padd_mixed_packed_lazy", "padd_lazy", "g1_jadd")),
                 "the main path launched a K3, K5, K6 or K2 step")
+        require(main_counts["copied"] == 0,
+                "the main path copied an operand of the field add/sub kernel")
         for name in ("mont_mul", "g1_madd", "padd_lazy", "window_sums", "bucket_loop_lazy",
-                     "padd_mixed_packed_lazy", "merge_lazy", "fixed_base_comb"):
+                     "padd_mixed_packed_lazy", "merge_lazy", "fixed_base_comb", "field_addsub"):
             launches[name] = main_counts[name]
         results.update(check_loop_kernels(
             cap.captured("fixed_base_comb", "bucket_loop_lazy", "merge_lazy", "window_sums"),

@@ -13,12 +13,15 @@ decided here for the whole port:
   `(32, *batch)` uint32 digit arrays and this layout.
 
 `mont_mul` goes through K1 (`ff/mulmod.py`): the CUDA kernel on a CUDA
-tensor, its plain torch version on a CPU tensor. Additions, subtractions and
-selects are plain torch on int64-widened limbs, as the JAX package left them
-to XLA.
+tensor, its plain torch version on a CPU tensor. `add` and `sub` launch
+`csrc/field_addsub.cu` once a call on a CUDA tensor, reading broadcast and
+strided operands where they lie, and run `add_plain` / `sub_plain` (plain
+torch on int64-widened limbs, as the JAX package left them to XLA) on a CPU
+tensor; the two agree bit for bit. Selects are plain torch.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -26,11 +29,16 @@ import math
 import numpy as np
 import torch
 
+from ..utils import kernels
 from . import host, mulmod
 from .limbs16 import M32, to_i32, u64
 
 N_LIMBS = 8
 R_BITS = 256
+# Launches of the add/sub kernel, and operands it could not read in place
+# (more than four batch dimensions left after merging) and had to copy.
+LAUNCHES = {"add": 0, "sub": 0, "copied": 0}
+MAX_DIMS = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +102,18 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
 
 
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p for canonical, broadcastable (8, *batch) a, b: one
+    kernel launch on a CUDA tensor, `add_plain` on a CPU tensor."""
+    return _add_or_sub("add", spec, a, b)
+
+
+def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod p for canonical, broadcastable (8, *batch) a, b: one
+    kernel launch on a CUDA tensor, `sub_plain` on a CPU tensor."""
+    return _add_or_sub("sub", spec, a, b)
+
+
+def add_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod p for canonical a, b."""
     a, b = torch.broadcast_tensors(a, b)
     ua, ub = u64(a), u64(b)
@@ -111,7 +131,7 @@ def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return to_i32(torch.where(use_d, torch.stack(d), torch.stack(s)))
 
 
-def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def sub_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a - b) mod p for canonical a, b."""
     a, b = torch.broadcast_tensors(a, b)
     ua, ub = u64(a), u64(b)
@@ -126,6 +146,93 @@ def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         out.append(v & M32)
         c = v >> 32
     return to_i32(torch.stack(out))
+
+
+_PLAIN = {"add": add_plain, "sub": sub_plain}
+_OPS = {"add": 0, "sub": 1}
+
+
+def broadcast_shape(x, y) -> tuple[int, ...]:
+    """`torch.broadcast_shapes(x, y)` for two shapes, without its cost on the
+    host (it builds tensors)."""
+    if x == y:
+        return tuple(x)
+    n = max(len(x), len(y))
+    x, y = (1,) * (n - len(x)) + tuple(x), (1,) * (n - len(y)) + tuple(y)
+    if any(p != q and 1 not in (p, q) for p, q in zip(x, y)):
+        raise ValueError(f"shapes {x} and {y} do not broadcast")
+    return tuple(q if p == 1 else p for p, q in zip(x, y))
+
+
+def broadcast_strides(t: torch.Tensor, shape) -> list[int]:
+    """t's strides in elements as seen through its broadcast to `shape`
+    (0 along a dimension it is broadcast over), as `t.expand(shape)` has them."""
+    pad = len(shape) - t.dim()
+    return [0] * pad + [s if n == m else 0 for n, m, s in zip(t.shape, shape[pad:], t.stride())]
+
+
+def lane_layout(shape, strides_a, strides_b):
+    """The kernel's view of two operands broadcast to `shape` = (8, *batch)
+    with the given strides (`broadcast_strides`): (sizes, batch strides of a,
+    of b), outermost first. Size-1 dimensions are dropped, and adjacent
+    dimensions that both operands step through as one are merged, so the
+    lanes are `prod(sizes)` in the output's row-major order. An empty batch
+    is one lane. May return more than `MAX_DIMS` dimensions."""
+    sizes, xa, xb = [], [], []
+    for n, s, t in zip(shape[1:], strides_a[1:], strides_b[1:]):
+        if n == 1:
+            continue
+        if sizes and xa[-1] == s * n and xb[-1] == t * n:
+            sizes[-1] *= n
+            xa[-1], xb[-1] = s, t
+        else:
+            sizes.append(n)
+            xa.append(s)
+            xb.append(t)
+    return (sizes, xa, xb) if sizes else ([1], [0], [0])
+
+
+def _copied(t: torch.Tensor, shape) -> torch.Tensor:
+    t = t.expand(shape)
+    if not t.is_contiguous():
+        LAUNCHES["copied"] += 1
+        t = t.contiguous()
+    return t
+
+
+def _add_or_sub(op: str, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.is_cpu:
+        return _PLAIN[op](spec, a, b)
+    if not a.is_cuda:
+        raise RuntimeError(f"{op}: no kernel for device {a.device}")
+    if a.device != b.device:
+        raise ValueError(f"{op}: operands on different devices ({a.device}, {b.device})")
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError(f"{op}: expected int32 limbs, got {a.dtype} and {b.dtype}")
+    shape = broadcast_shape(a.shape, b.shape)
+    if len(shape) == 0 or shape[0] != N_LIMBS:
+        raise ValueError(f"{op}: expected (8, *batch) operands, got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    lanes = out.numel() // N_LIMBS
+    if lanes == 0:
+        return out
+    sa, sb = broadcast_strides(a, shape), broadcast_strides(b, shape)
+    sizes, xa, xb = lane_layout(shape, sa, sb)
+    if len(sizes) > MAX_DIMS:  # read in place no longer: copy the operands
+        a, b = _copied(a, shape), _copied(b, shape)
+        sa, sb = list(a.stride()), list(b.stride())
+        sizes, xa, xb = lane_layout(shape, sa, sb)
+    pad = MAX_DIMS - len(sizes)
+    layout = (ctypes.c_longlong * (3 * MAX_DIMS + 2))(
+        *sizes, *[1] * pad, *xa, *[0] * pad, *xb, *[0] * pad, sa[0], sb[0])
+    rc = kernels.lib().pht_field_addsub(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), layout, len(sizes), lanes, _OPS[op],
+        mulmod._FIELD_IDS[spec.name], kernels.stream_ptr(a.device),
+    )
+    kernels.check(rc, f"field {op}")
+    LAUNCHES[op] += 1
+    return out
 
 
 def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("mont_mul.cu", "g1_add.cu", "mont_mul_lazy.cu", "g1_add_lazy.cu")
+SOURCES = ("mont_mul.cu", "g1_add.cu", "mont_mul_lazy.cu", "g1_add_lazy.cu", "field_addsub.cu")
 HEADERS = ("field.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -114,10 +114,11 @@ def lib() -> ctypes.CDLL:
         L.pht_g1_bucket.argtypes = [vp] * 11 + [ll, ll, vp]
         L.pht_g1_fixed_base_comb.argtypes = [vp] * 6 + [ll, vp]
         L.pht_g1_merge_lazy.argtypes = [vp] * 4 + [ll] + [vp] * 7 + [ll] * 6 + [vp]
+        L.pht_field_addsub.argtypes = [vp] * 4 + [ci, ll, ci, ci, vp]
         fns = (L.pht_mont_mul, L.pht_g1_jadd, L.pht_g1_madd, L.pht_mont_mul_lazy,
                L.pht_g1_madd_lazy, L.pht_g1_jadd_lazy, L.pht_g1_window_sums,
                L.pht_g1_bucket_lazy, L.pht_g1_bucket, L.pht_g1_fixed_base_comb,
-               L.pht_g1_merge_lazy)
+               L.pht_g1_merge_lazy, L.pht_field_addsub)
         for fn in fns:
             fn.restype = ci
         _lib = L

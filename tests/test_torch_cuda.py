@@ -74,6 +74,88 @@ def test_mont_mul_kernel_matches_plain(dev, spec, lanes):
     assert f.unpack_ints(out[:, :16]) == [x * y * rinv % spec.p for x, y in zip(xs[:16], ys[:16])]
 
 
+def _addsub_edges(p: int) -> list[tuple[int, int]]:
+    """Edge lanes of add and sub: 0, 1, p - 1, a + b = p, a + b = p - 1,
+    a = b and b = 0, each way round."""
+    x = 0x1234567890ABCDEF1234567890ABCDEF % p
+    pairs = [(0, 0), (0, 1), (1, 0), (0, p - 1), (p - 1, 0), (1, p - 1), (p - 1, 1),
+             (p - 1, p - 1), (x, p - x), (p - x, x), (x, p - 1 - x), (p - 1 - x, x), (x, x),
+             (x, 0), (0, x), (1, 1)]
+    return pairs
+
+
+@pytest.mark.parametrize("op", ["add", "sub"])
+@pytest.mark.parametrize("spec", [f.FR, f.FQ], ids=["Fr", "Fq"])
+@pytest.mark.parametrize("lanes", [1, 255, 1 << 16, (1 << 16) + 3])
+def test_add_sub_kernel_matches_plain(dev, op, spec, lanes):
+    xs = _values(spec.p, 11, lanes)
+    ys = _values(spec.p, 12, lanes)[::-1]
+    for i, (u, v) in enumerate(_addsub_edges(spec.p)[:lanes]):
+        xs[i], ys[i] = u, v
+    a, b = f.pack_ints(xs, dev), f.pack_ints(ys, dev)
+    before = dict(f.LAUNCHES)
+    out = getattr(f, op)(spec, a, b)
+    torch.cuda.synchronize()
+    assert f.LAUNCHES[op] == before[op] + 1 and f.LAUNCHES["copied"] == before["copied"]
+    assert out.shape == a.shape and out.dtype == torch.int32 and out.is_contiguous()
+    assert torch.equal(out, getattr(f, op + "_plain")(spec, a, b))
+    sign = 1 if op == "add" else -1
+    assert f.unpack_ints(out[:, :64]) == [(x + sign * y) % spec.p for x, y in zip(xs[:64], ys[:64])]
+
+
+def _addsub_views(dev):
+    """(a, b) of the callers' shapes: the prover's slabs against a challenge,
+    either way round; the NTT's strided u at a wide and at the first stage;
+    narrowed halves (`sum_axis`); neg's p expanded."""
+    g, n = 7, 1 << 12
+    vals = f.pack_ints(_values(f.FR.p, 13, g * n), dev)
+    slab = vals.reshape(8, g, n)
+    chal = vals[:, :n].reshape(8, 1, n).flip(-1).contiguous()
+    x = vals[:, : 1 << 14]
+    v = f.pack_ints(_values(f.FR.p, 14, 1 << 13), dev)
+    return {
+        "slab_plus_challenge": (slab, chal),
+        "challenge_plus_slab": (chal, slab),
+        "ntt_strided_view": (x.reshape(8, 16, 2, 512)[..., 0, :], v.reshape(8, 16, 512)),
+        "ntt_first_stage": (x.reshape(8, 1 << 13, 2, 1)[..., 0, :], v.reshape(8, 1 << 13, 1)),
+        "narrowed_halves": (slab.narrow(1, 0, 3), slab.narrow(1, 3, 3)),
+        "neg_p_expanded": (f.FR.limbs("p", dev).reshape(8, 1, 1).expand(8, g, n), slab),
+    }
+
+
+@pytest.mark.parametrize("op", ["add", "sub"])
+@pytest.mark.parametrize("case", ["slab_plus_challenge", "challenge_plus_slab", "ntt_strided_view",
+                                  "ntt_first_stage", "narrowed_halves", "neg_p_expanded"])
+def test_add_sub_kernel_reads_views_in_place(dev, op, case):
+    """The kernel reads broadcast, strided and narrowed operands where they
+    lie: one launch, no copy, the plain version's bits."""
+    a, b = _addsub_views(dev)[case]
+    before = dict(f.LAUNCHES)
+    out = getattr(f, op)(f.FR, a, b)
+    torch.cuda.synchronize()
+    assert f.LAUNCHES[op] == before[op] + 1 and f.LAUNCHES["copied"] == before["copied"]
+    ref = getattr(f, op + "_plain")(f.FR, a, b)
+    assert out.shape == ref.shape and out.is_contiguous() and torch.equal(out, ref)
+
+
+def test_add_sub_kernel_copies_past_four_dimensions_and_skips_empty_calls(dev):
+    five = f.pack_ints(_values(f.FQ.p, 15, 2 * 3 * 2 * 3 * 2), dev).reshape(8, 2, 3, 2, 3, 2)
+    a, b = five.permute(0, 5, 4, 3, 2, 1), five[:, :1].permute(0, 5, 4, 3, 2, 1)
+    before = dict(f.LAUNCHES)
+    out = f.sub(f.FQ, a, b)
+    torch.cuda.synchronize()
+    assert f.LAUNCHES["sub"] == before["sub"] + 1 and f.LAUNCHES["copied"] == before["copied"] + 2
+    assert torch.equal(out, f.sub_plain(f.FQ, a, b))
+    empty = f.add(f.FQ, five[:, :0], five[:, :0])
+    assert empty.shape == (8, 0, 3, 2, 3, 2) and f.LAUNCHES["add"] == before["add"]
+    with pytest.raises(TypeError):
+        f.add(f.FQ, five.to(torch.int64), five.to(torch.int64))
+    with pytest.raises(ValueError):
+        f.add(f.FQ, five, five.cpu())
+    with pytest.raises(ValueError):
+        f.add(f.FQ, five[:4], five[:4])
+
+
 @pytest.fixture(scope="module")
 def point_operands(dev):
     """4096 lanes of (P, Q) for each point kernel, edge lanes first: P+inf,

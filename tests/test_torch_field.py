@@ -191,3 +191,92 @@ def test_cpu_tensor_takes_the_plain_version():
     a = f.pack_ints(_values(f.FQ.p, 7, 32), "cpu")
     assert torch.equal(mulmod.mont_mul(f.FQ, a, a), mulmod.mont_mul_plain(f.FQ, a, a))
     assert mulmod.LAUNCHES == before  # no kernel launch counted on the CPU
+
+
+def _strided_view(x: torch.Tensor, m: int, h: int) -> torch.Tensor:
+    """The NTT's u: the first half of each butterfly block, `poly/ntt.py`."""
+    return x.reshape(8, m, 2, h)[..., 0, :]
+
+
+def _layout_cases():
+    """(name, a, b) of the shapes the kernel's callers pass (CPU tensors)."""
+    g, n = 5, 64
+    slab = torch.arange(8 * g * n, dtype=torch.int32).reshape(8, g, n)
+    chal = torch.arange(8 * n, dtype=torch.int32).reshape(8, 1, n) + 7
+    x = torch.arange(8 * 4 * 2 * 8, dtype=torch.int32).reshape(8, 64)
+    full = torch.arange(8 * 6 * 3, dtype=torch.int32).reshape(8, 6, 3)
+    p = f.FR.limbs("p", "cpu").reshape(8, 1, 1)
+    five = torch.arange(8 * 2 * 3 * 2 * 3 * 2, dtype=torch.int32).reshape(8, 2, 3, 2, 3, 2)
+    return {
+        "contiguous": (slab, slab + 1, [g * n]),
+        "slab_plus_challenge": (slab, chal, [g, n]),
+        "challenge_plus_slab": (chal, slab, [g, n]),
+        "ntt_strided_view": (_strided_view(x, 4, 8), torch.zeros(8, 4, 8, dtype=torch.int32),
+                             [4, 8]),
+        "ntt_first_stage": (_strided_view(x, 32, 1), torch.zeros(8, 32, 1, dtype=torch.int32),
+                            [32]),
+        "narrowed_halves": (full.narrow(1, 0, 3), full.narrow(1, 3, 3), [9]),
+        "neg_p_expanded": (p.expand(8, 6, 3), full, [18]),
+        "one_lane": (torch.ones(8, 1, dtype=torch.int32), torch.ones(8, 1, dtype=torch.int32), [1]),
+        "no_batch": (torch.ones(8, dtype=torch.int32), torch.full((8,), 2, dtype=torch.int32),
+                     [1]),
+        "five_dims_copied": (five.permute(0, 5, 4, 3, 2, 1), five[:, :1].permute(0, 5, 4, 3, 2, 1),
+                             None),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_layout_cases()))
+def test_add_sub_kernel_layout_matches_broadcast_tensors(case):
+    """The shape, merged dimensions and strides that `add` and `sub` hand the
+    kernel on a CUDA tensor, worked out here on CPU tensors of the callers'
+    shapes: the shape and strides are `torch.broadcast_tensors`'s, and
+    reading each operand's lanes through the merged layout, as the kernel
+    does, gives the broadcast operand in the output's lane order, so the
+    plain add of those lanes is the add of the operands."""
+    a, b, want_sizes = _layout_cases()[case]
+    ea, eb = torch.broadcast_tensors(a, b)
+    shape = f.broadcast_shape(a.shape, b.shape)
+    assert shape == tuple(torch.broadcast_shapes(a.shape, b.shape)) == tuple(ea.shape)
+    sa, sb = f.broadcast_strides(a, shape), f.broadcast_strides(b, shape)
+    for mine, view in ((sa, ea), (sb, eb)):  # strides of size-1 dimensions are arbitrary
+        assert [s for s, n in zip(mine, shape) if n > 1] == [
+            s for s, n in zip(view.stride(), shape) if n > 1]
+    sizes, xa, xb = f.lane_layout(shape, sa, sb)
+    if want_sizes is None:  # past MAX_DIMS: the wrapper copies, then reads one dimension
+        assert len(sizes) > f.MAX_DIMS
+        a, b = ea.contiguous(), eb.contiguous()
+        sa, sb = list(a.stride()), list(b.stride())
+        sizes, xa, xb = f.lane_layout(shape, sa, sb)
+        want_sizes = [ea[0].numel()]
+    assert sizes == want_sizes and len(sizes) <= f.MAX_DIMS
+    lanes = ea[0].numel()
+    got = [torch.as_strided(t, (8, *sizes), (s[0], *x)).reshape(8, lanes)
+           for t, s, x in ((a, sa, xa), (b, sb, xb))]
+    assert torch.equal(got[0], ea.reshape(8, lanes)) and torch.equal(got[1], eb.reshape(8, lanes))
+    spec = f.FR
+    ca, cb = (f.pack_ints([v % spec.p for v in f.unpack_ints(t)], "cpu") for t in got)
+    va, vb = (f.pack_ints([v % spec.p for v in f.unpack_ints(t)], "cpu").reshape(shape)
+              for t in (ea.contiguous(), eb.contiguous()))
+    assert torch.equal(f.add_plain(spec, ca, cb), f.add(spec, va, vb).reshape(8, lanes))
+
+
+def test_broadcast_shape_refuses_what_torch_refuses():
+    with pytest.raises(ValueError):
+        f.broadcast_shape((8, 3, 4), (8, 2, 4))
+    assert f.broadcast_shape((8, 1, 4), (3, 1)) == (8, 3, 4)
+
+
+@pytest.mark.parametrize("op", ["add", "sub"])
+def test_cpu_add_sub_take_the_plain_version(op):
+    """On a CPU tensor `add` and `sub` are `add_plain` and `sub_plain`, and
+    launch nothing; a device with neither raises."""
+    before = dict(f.LAUNCHES)
+    a = f.pack_ints(_values(f.FQ.p, 9, 32), "cpu")
+    b = f.pack_ints(_values(f.FQ.p, 10, 32)[::-1], "cpu")
+    plain = getattr(f, op + "_plain")
+    assert torch.equal(getattr(f, op)(f.FQ, a, b), plain(f.FQ, a, b))
+    assert torch.equal(getattr(f, op)(f.FQ, a.reshape(8, 4, 8), b[:, None, :8]),
+                       plain(f.FQ, a.reshape(8, 4, 8), b[:, None, :8]))
+    assert f.LAUNCHES == before
+    with pytest.raises(RuntimeError):
+        getattr(f, op)(f.FQ, a.to("meta"), b.to("meta"))
