@@ -21,30 +21,28 @@ import json
 import random
 
 
-def synth_one(ctx, i: int, lookup_bits: int = 16, enc_bits: int = 128, limb_bits: int = 64,
-              seed: int = 1) -> None:
-    """Instance i in its own Context, its inputs from `random.Random(seed +
-    i)` (`bench_batch.py:29-50`). Top level, so that it pickles for the
-    pool's spawn workers; it touches no torch tensor."""
-    from ..gadgets.range import RangeChip
-    from ..harness.circuits import paillier_enc_test
-    from . import enc_input
-
-    paillier_enc_test(ctx, RangeChip(ctx, lookup_bits),
-                      enc_input(random.Random(seed + i), enc_bits, limb_bits))
-
-
 def synthesize(batch: int, lookup_bits: int, enc_bits: int, limb_bits: int,
                n_workers: int | None = None):
-    """The batched table through `SinglePhaseCoreManager.synth_parallel`;
-    returns (table, the number of pool workers that synthesized: 1 where
-    it ran serially, pool error or None)."""
-    from ..gadgets.context import SinglePhaseCoreManager
+    """The batched table through `harness.circuits.paillier_enc_batch`, in
+    a `SynthPool` of `n_workers` (default one a core, up to the batch; 1
+    runs serially), instance i's statement drawn from `random.Random(1 +
+    i)` with its own n (`bench_batch.py:29-50`); returns (table, the number
+    of pool workers that synthesized: 1 where it ran serially, pool error
+    or None)."""
+    import os
 
+    from ..gadgets.context import SynthPool
+    from ..harness.circuits import paillier_enc_batch
+    from . import enc_input
+
+    inputs = [enc_input(random.Random(1 + i), enc_bits, limb_bits) for i in range(batch)]
+    n = min(os.cpu_count() or 1, batch) if n_workers is None else n_workers
     stats: dict = {}
-    table = SinglePhaseCoreManager.synth_parallel(
-        functools.partial(synth_one, lookup_bits=lookup_bits, enc_bits=enc_bits,
-                          limb_bits=limb_bits), batch, n_workers, stats=stats)
+    if n > 1 and batch > 1:
+        with SynthPool(n) as pool:
+            table, _ = paillier_enc_batch(inputs, lookup_bits, pool=pool, stats=stats)
+    else:
+        table, _ = paillier_enc_batch(inputs, lookup_bits, stats=stats, n_workers=1)
     return table, stats["workers"], stats["pool_error"]
 
 

@@ -220,9 +220,19 @@ class VirtualTable:
         return [int(self.values[i]) for i in self.publics]
 
 
+def row_offsets(tables: Iterable[VirtualTable]) -> list[int]:
+    """Each table's first row in the merge of `tables`, in order."""
+    base, offsets = 0, []
+    for t in tables:
+        offsets.append(base)
+        base += t.n_rows
+    return offsets
+
+
 def merge_tables(tables: Iterable[VirtualTable]) -> VirtualTable:
     """Concatenate independently synthesized virtual tables into one circuit,
-    rebasing every row index by the preceding tables' row counts.
+    rebasing every row index by the preceding tables' row counts
+    (`row_offsets`).
 
     This is the assignment-time merge of a Context pool (halo2-base's
     SinglePhaseCoreManager collects per-thread Contexts the same way,
@@ -231,10 +241,7 @@ def merge_tables(tables: Iterable[VirtualTable]) -> VirtualTable:
     circuit is equivalent to serial synthesis up to per-context cached cells
     (e.g. each sub-context carries its own zero cell)."""
     tables = list(tables)
-    base, offsets = 0, []
-    for t in tables:
-        offsets.append(base)
-        base += t.n_rows
+    offsets = row_offsets(tables)
 
     def cat(field: str, dtype=None, rebase: bool = False):
         chunks = []
@@ -257,26 +264,66 @@ def merge_tables(tables: Iterable[VirtualTable]) -> VirtualTable:
     )
 
 
-_synth_fn = None  # read by _synth_worker on the serial path
-
-
-def _synth_worker(idx):
+def _synth_instance(fn, idx):
+    """fn(ctx, idx) in a fresh Context: (the finalized table, the row
+    indices of the Cells fn returned, or None where it returned none)."""
     ctx = Context()
-    _synth_fn(ctx, idx)
-    return ctx.finalize()
+    out = fn(ctx, idx)
+    return ctx.finalize(), (out.idx.copy() if isinstance(out, Cells) else None)
 
 
 def _synth_worker_spawn(args):
     """Spawn-pool worker: fn ships via pickle (must be a top-level callable
     or a functools.partial of one). The child is a FRESH interpreter; the
     gadget layer runs on host ints and touches no torch tensor. Returns
-    (the worker's pid, the instance's table)."""
+    (the worker's pid, the instance's table, its returned cell indices)."""
     import os
 
     fn, idx = args
-    ctx = Context()
-    fn(ctx, idx)
-    return os.getpid(), ctx.finalize()
+    return (os.getpid(), *_synth_instance(fn, idx))
+
+
+class SynthPool:
+    """A pool of spawn workers that `synth_parallel(..., pool=)` reuses from
+    call to call, so that a prover synthesizing batch after batch starts
+    its interpreters once. `SynthPool(n_workers)`; `close()` (or leave its
+    `with` block) ends the workers. `spawn_s` is the seconds its start took.
+    A pool whose wait failed is closed, and keeps the failure in `error`:
+    every later call that is given it synthesizes serially and reports that
+    error."""
+
+    def __init__(self, n_workers: int):
+        import multiprocessing as mp
+        import time
+
+        if n_workers < 2:
+            raise ValueError(f"a pool needs at least 2 workers, not {n_workers}")
+        t0 = time.perf_counter()
+        self.n_workers = n_workers
+        self.error: str | None = None
+        self._pool = mp.get_context("spawn").Pool(n_workers)
+        self.spawn_s = time.perf_counter() - t0
+
+    def map(self, args: list, timeout: float) -> list:
+        if self._pool is None:
+            raise RuntimeError(self.error or "the pool is closed")
+        return self._pool.map_async(_synth_worker_spawn, args, chunksize=1).get(timeout=timeout)
+
+    def fail(self, error: str) -> None:
+        self.error = error
+        self.close()
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
+
+    def __enter__(self) -> "SynthPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 class SinglePhaseCoreManager:
@@ -308,26 +355,37 @@ class SinglePhaseCoreManager:
 
     @staticmethod
     def synth_parallel(fn, n_instances: int, n_workers: int | None = None,
-                       stats: dict | None = None) -> VirtualTable:
+                       stats: dict | None = None, pool: SynthPool | None = None,
+                       outputs: list | None = None) -> VirtualTable:
         """Run fn(ctx, i) for i in range(n_instances) across SPAWN worker
         processes; merge the per-instance tables in instance order. Workers
         must not touch torch (pure host-int synthesis).
 
         fork() after torch has started its thread pools (or CUDA) is unsafe,
-        so the pool always spawns fresh interpreters. Spawn requires fn to be
-        picklable (a top-level function or functools.partial of one);
-        unpicklable closures run serially. The pool wait is bounded: on
-        timeout the pool is torn down and synthesis runs serially in-process
-        — slower, never hung. A caller that must tell the two apart passes
-        `stats`: it receives `workers`, the number of distinct processes that
-        synthesized instances (1 when synthesis ran serially), and
-        `pool_error`, the repr of what stopped the pool (None if nothing
-        did)."""
-        import multiprocessing as mp
-        import os
+        so the pool always spawns fresh interpreters: a pool of its own for
+        the call, or the caller's kept `pool` (then `n_workers` is the
+        pool's). Spawn requires fn to be picklable (a top-level function or
+        functools.partial of one); unpicklable closures run serially. The
+        pool wait is bounded: on timeout the pool is torn down and synthesis
+        runs serially in-process — slower, never hung.
 
-        global _synth_fn
-        if n_workers is None:
+        `outputs`, where given, receives one entry per instance: the row
+        indices in the merged table of the Cells fn returned, or None where
+        it returned something else. `stats`, where given, receives:
+        `workers`, the number of distinct processes that synthesized
+        instances (1 when synthesis ran serially); `pool_error`, the repr of
+        what stopped the pool (None if nothing did); `instances`; `rows`,
+        the merged table's; and host seconds: `spawn_s` starting workers (0
+        with a kept pool), `pool_s` from handing the work out until every
+        instance's table is back in the parent (the serial synthesis where
+        it ran serially), `merge_s` the merge and the rebasing of the
+        outputs."""
+        import os
+        import time
+
+        if pool is not None:
+            n_workers = pool.n_workers
+        elif n_workers is None:
             n_workers = min(os.cpu_count() or 1, n_instances)
         if n_workers > 1:
             import pickle
@@ -336,26 +394,38 @@ class SinglePhaseCoreManager:
                 pickle.dumps(fn)
             except Exception:
                 n_workers = 1  # closure: cannot ship to spawn workers
-        _synth_fn = fn
-        tables, workers, pool_error = None, 1, None
-        try:
-            if n_workers > 1 and n_instances > 1:
-                pool = mp.get_context("spawn").Pool(n_workers)
-                try:
-                    res = pool.map_async(
-                        _synth_worker_spawn, [(fn, i) for i in range(n_instances)]
-                    )
-                    pids, tables = zip(*res.get(timeout=120 + 30 * n_instances))
-                    workers = len(set(pids))
-                except Exception as e:  # TimeoutError, pickling, worker crash
-                    tables, pool_error = None, repr(e)
-                finally:
-                    pool.terminate()
-                    pool.join()
-            if tables is None:
-                tables = [_synth_worker(i) for i in range(n_instances)]
-        finally:
-            _synth_fn = None
+        results, workers, spawn_s = None, 1, 0.0
+        pool_error = None if pool is None else pool.error
+        t_pool = time.perf_counter()
+        if n_workers > 1 and n_instances > 1 and pool_error is None:
+            own = pool is None
+            if own:
+                pool = SynthPool(n_workers)
+                spawn_s = pool.spawn_s
+                t_pool = time.perf_counter()
+            try:
+                res = pool.map([(fn, i) for i in range(n_instances)],
+                               timeout=120 + 30 * n_instances)
+                pids, *rest = zip(*res)
+                results = list(zip(*rest))
+                workers = len(set(pids))
+            except Exception as e:  # TimeoutError, pickling, worker crash
+                pool_error = repr(e)
+                pool.fail(pool_error)
+            finally:
+                if own:
+                    pool.close()
+        if results is None:
+            results = [_synth_instance(fn, i) for i in range(n_instances)]
+        t_merge = time.perf_counter()
+        tables = [t for t, _ in results]
+        table = merge_tables(tables)
+        if outputs is not None:
+            outputs[:] = [None if idx is None else idx + off
+                          for (_, idx), off in zip(results, row_offsets(tables))]
+        t_end = time.perf_counter()
         if stats is not None:
-            stats.update(workers=workers, pool_error=pool_error)
-        return merge_tables(tables)
+            stats.update(workers=workers, pool_error=pool_error, instances=n_instances,
+                         rows=table.n_rows, spawn_s=spawn_s, pool_s=t_merge - t_pool,
+                         merge_s=t_end - t_merge)
+        return table

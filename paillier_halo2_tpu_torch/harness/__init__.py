@@ -6,6 +6,7 @@ from .circuits import (
     PaillierAddCipherInput,
     PaillierEncryptionInput,
     paillier_enc_add_test,
+    paillier_enc_batch,
     paillier_enc_test,
 )
 
@@ -20,5 +21,6 @@ __all__ = [
     "base_test",
     "bench_builder",
     "paillier_enc_add_test",
+    "paillier_enc_batch",
     "paillier_enc_test",
 ]

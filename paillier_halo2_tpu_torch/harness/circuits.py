@@ -6,6 +6,9 @@ the reference's bench module (upstream src/bench.rs:11-117):
 `RangeChip`, assigns the inputs, runs the gadget, and asserts the result both
 at witness level (host assert) and constraint level (`assert_equal_fresh`) —
 the double-assert pattern of upstream src/bench.rs:57-74.
+`paillier_enc_batch` synthesizes many encryption statements into one merged
+table through the witness pool, as the upstream bench's `pool.main()` does
+(src/bench.rs:3,38).
 
 Host-only module of the PyTorch port, copied from
 `paillier_halo2_tpu/harness/circuits.py:1`.
@@ -13,9 +16,10 @@ Host-only module of the PyTorch port, copied from
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 from ..gadgets.biguint import BigUintChip
-from ..gadgets.context import Context
+from ..gadgets.context import Cells, Context, SinglePhaseCoreManager, SynthPool
 from ..gadgets.paillier import EncryptionPublicKeyAssigned, PaillierChip
 from ..gadgets.range import RangeChip
 
@@ -88,3 +92,29 @@ def paillier_enc_add_test(ctx: Context, range_chip: RangeChip, input: PaillierAd
     )
     bu.assert_equal_fresh(c, expected)
     return c
+
+
+def _enc_instance(ctx: Context, i: int, inputs: tuple, lookup_bits: int) -> Cells:
+    """Statement i of a batch in its own Context; returns the ciphertext's
+    limb cells. Top level, so that it pickles for the pool's spawn workers;
+    it touches no torch tensor."""
+    return paillier_enc_test(ctx, RangeChip(ctx, lookup_bits), inputs[i]).limbs
+
+
+def paillier_enc_batch(inputs, lookup_bits: int, pool: SynthPool | None = None,
+                       stats: dict | None = None, n_workers: int | None = None
+                       ) -> tuple:
+    """The batched encryption circuit: every `PaillierEncryptionInput` of
+    `inputs` synthesized by `paillier_enc_test` in its own Context, through
+    `SinglePhaseCoreManager.synth_parallel` (a kept `pool`, else a pool of
+    `n_workers` for the call; 1 runs serially), merged in the inputs' order.
+
+    Returns (the merged `VirtualTable`, one int64 array per input: the row
+    indices in the merged table of its ciphertext's limbs, least significant
+    first). `stats` receives `synth_parallel`'s."""
+    inputs = tuple(inputs)
+    fn = functools.partial(_enc_instance, inputs=inputs, lookup_bits=lookup_bits)
+    cipher_idx: list = []
+    table = SinglePhaseCoreManager.synth_parallel(fn, len(inputs), n_workers, stats=stats,
+                                                  pool=pool, outputs=cipher_idx)
+    return table, cipher_idx

@@ -2,8 +2,9 @@
 its trace utilities against the JAX package and its root scripts, on the
 CPU at small sizes:
 
-- `bench_batch.synth_one` through the witness pool builds the table the
-  JAX package builds with `bench_batch.py:29-50`'s recipe;
+- `bench_batch.synthesize` (`harness.circuits.paillier_enc_batch` in a
+  kept witness pool) builds the table the JAX package builds with
+  `bench_batch.py:29-50`'s recipe;
 - a K=10 batched proof (B=2) equals `tests/torch_fixtures/batch_k10.json`
   (written by `make_slice_fixture.py batch`), byte for byte;
 - `bench_bigenc`'s circuit and its layout's column count equal the JAX
@@ -101,7 +102,8 @@ def test_synth_parallel_reports_serial_synthesis():
     stats = {}
     table = SinglePhaseCoreManager.synth_parallel(lambda ctx, i: ctx.load_witness([base + i]), 2,
                                                   n_workers=2, stats=stats)
-    assert stats == {"workers": 1, "pool_error": None}
+    assert {key: stats[key] for key in ("workers", "pool_error", "instances", "rows", "spawn_s")} \
+        == {"workers": 1, "pool_error": None, "instances": 2, "rows": 2, "spawn_s": 0.0}
     assert [int(v) for v in table.values] == [5, 6]
 
 
