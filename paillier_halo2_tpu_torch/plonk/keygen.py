@@ -5,16 +5,23 @@ precomputes, once per circuit shape: the column layout, every fixed
 polynomial (selectors, constant column, range table, permutation sigmas,
 active-row indicator, boundary Lagrange polys) in Montgomery coefficient form
 on the SRS's device, and their commitments (the verifying key).
+
+The fixed columns are formed on that device: sigma is gathered from the
+prover's cached omega and delta power tables by the layout's indices, and
+the selectors, range table and indicators go up as small integers. Only
+the constant column is packed from Python ints (`FIXED_CELLS` counts both).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
 import torch
 
 from ..ec import host as ech
+from ..ff import field as f
 from ..ff import host
 from ..gadgets.context import VirtualTable
 from ..poly import ops
@@ -35,6 +42,11 @@ PERM_CHUNK = 2  # permutation columns per grand-product (degree 2+PERM_CHUNK)
 # Multi-open schemes: "shplonk" (BDFG20, two W points, the halo2-axiom
 # harness default) and "gwc" (GWC19, one W point per opening point).
 MULTIOPEN_SCHEMES = ("shplonk", "gwc")
+
+# Cells of fixed columns over every keygen: "device" formed on the key's
+# device from integer arrays, "host_ints" packed from Python ints (the
+# constant column, whose cells are arbitrary field elements).
+FIXED_CELLS = {"device": 0, "host_ints": 0}
 
 
 @dataclasses.dataclass
@@ -103,6 +115,50 @@ def permutation_powers(k: int, n_perm_cols: int) -> tuple[np.ndarray, np.ndarray
     return np.array(delta_pows, dtype=object), np.array(omega_pows, dtype=object)
 
 
+@functools.lru_cache(maxsize=8)
+def omega_powers_dev(k: int, device: str) -> torch.Tensor:
+    """(8, 1, n) Montgomery powers of the 2^k-th root of unity."""
+    return ops.powers_dev([host.root_of_unity(k)], 1 << k, device)
+
+
+@functools.lru_cache(maxsize=8)
+def delta_powers_dev(npc: int, device: str) -> torch.Tensor:
+    """(8, npc) Montgomery DELTA^j."""
+    return ops._mont_consts([pow(DELTA, j, P) for j in range(npc)], device)
+
+
+def _fixed_columns_mont(layout: CircuitLayout, k: int, lookup_bits: int,
+                        device) -> torch.Tensor:
+    """(8, m, n) Montgomery values of every fixed column, in the order
+    q..., fixed_const, table, sigma..., active, l0, lu. Only the constant
+    column is packed from Python ints; the rest is formed on the device."""
+    n = 1 << k
+    usable = n - BLINDING_ROWS
+    na = layout.num_advice
+    # standard-form limbs of q..., fixed_const, table, active, l0, lu
+    plain = torch.zeros((f.N_LIMBS, na + 5, n), dtype=torch.int32, device=device)
+    plain[0, :na] = torch.from_numpy(layout.q).to(device)
+    plain[:, na] = ops.pack_values(layout.fixed_const, device)
+    plain[0, na + 1, : 1 << lookup_bits] = torch.arange(
+        1 << lookup_bits, dtype=torch.int32, device=device)
+    plain[0, na + 2, :usable] = 1
+    plain[0, na + 3, 0] = 1
+    plain[0, na + 4, usable] = 1
+    small = f.to_mont(f.FR, plain)
+    del plain
+    # sigma = delta^col * omega^row, gathered from the device power tables
+    idx_col = torch.from_numpy(layout.sigma_col.astype(np.int32).reshape(-1)).to(device)
+    idx_row = torch.from_numpy(layout.sigma_row.astype(np.int32).reshape(-1)).to(device)
+    delta = delta_powers_dev(layout.n_perm_cols, str(device)).index_select(1, idx_col)
+    omega = omega_powers_dev(k, str(device))[:, 0].index_select(1, idx_row)
+    del idx_col, idx_row
+    sigma = f.mont_mul(f.FR, delta, omega).reshape((f.N_LIMBS,) + layout.sigma_col.shape)
+    del delta, omega
+    FIXED_CELLS["device"] += (na + 4 + layout.n_perm_cols) * n
+    FIXED_CELLS["host_ints"] += n
+    return torch.cat([small[:, : na + 2], sigma, small[:, na + 2 :]], dim=1)
+
+
 def keygen(table: VirtualTable, k: int, lookup_bits: int, srs: SRS,
            multiopen: str = "shplonk") -> ProvingKey:
     """`multiopen` picks the scheme the key's proofs open with (the JAX
@@ -123,31 +179,14 @@ def keygen(table: VirtualTable, k: int, lookup_bits: int, srs: SRS,
     n_perm_cols = layout.n_perm_cols
 
     # -- fixed value columns ---------------------------------------------------
-    q_vals = [layout.q[c].astype(object) for c in range(na)]
     fixed_const_vals = layout.fixed_const
     assert (1 << lookup_bits) <= usable, "range table does not fit active region"
     table_vals = np.zeros(n, dtype=object)
     table_vals[: 1 << lookup_bits] = np.arange(1 << lookup_bits).astype(object)
-
-    delta_arr, omega_arr = permutation_powers(k, n_perm_cols)
-    sigma_values = delta_arr[layout.sigma_col] * omega_arr[layout.sigma_row] % P
-
-    active_vals = np.zeros(n, dtype=object)
-    active_vals[:usable] = 1
-    l0_vals = np.zeros(n, dtype=object)
-    l0_vals[0] = 1
-    lu_vals = np.zeros(n, dtype=object)
-    lu_vals[usable] = 1
+    stack_dev = _fixed_columns_mont(layout, k, lookup_bits, device)  # (8, m, n)
+    timer.mark("fixed values built")
 
     # -- coefficient forms (one batched iNTT per slab) + commitments -----------
-    timer.mark("fixed values built")
-    fixed_stack = np.stack(
-        q_vals
-        + [fixed_const_vals, table_vals]
-        + [sigma_values[j] for j in range(n_perm_cols)]
-        + [active_vals, l0_vals, lu_vals]
-    )
-    stack_dev = ops.to_device_mont(fixed_stack, device)  # (8, m, n)
     ch = column_slab(device, n)
     all_coeffs = torch.cat(
         [ops.coeffs_of(stack_dev[:, c0 : c0 + ch], k) for c0 in range(0, stack_dev.shape[1], ch)],

@@ -50,7 +50,13 @@ from ..ff import host
 from ..gadgets.context import VirtualTable
 from ..poly import ops
 from ..utils.trace import PhaseTimer, profile_section
-from .keygen import DELTA, EXTENDED_RATE_BITS, ProvingKey, check_multiopen
+from .keygen import (
+    EXTENDED_RATE_BITS,
+    ProvingKey,
+    check_multiopen,
+    delta_powers_dev,
+    omega_powers_dev,
+)
 from .kzg import commit_many
 from .layout import instance_column, lookup_columns, witness_columns
 from .multiopen import KINDS, shplonk_groups
@@ -121,18 +127,6 @@ def _permuted_lookup(a_active: np.ndarray, lookup_bits: int, usable: int):
     fill[: len(leftovers)] = leftovers
     s_sorted[holes] = fill
     return a_sorted, s_sorted
-
-
-@functools.lru_cache(maxsize=8)
-def _omega_powers_dev(k: int, device: str) -> torch.Tensor:
-    """(8, 1, n) Montgomery powers of the 2^k-th root of unity."""
-    return ops.powers_dev([host.root_of_unity(k)], 1 << k, device)
-
-
-@functools.lru_cache(maxsize=8)
-def _delta_powers_dev(npc: int, device: str) -> torch.Tensor:
-    """(8, npc) Montgomery DELTA^j."""
-    return _mont([pow(DELTA, j, P) for j in range(npc)], device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -374,8 +368,8 @@ def _create_proof_inner(pk: ProvingKey, table: VirtualTable, blinding_seed: byte
     npc = vk.n_perm_cols
     act_dev = torch.arange(n, device=dev) < usable
     b3, g3 = beta_m[:, None, :], gamma_m[:, None, :]
-    omega_row = _omega_powers_dev(k, str(dev))
-    delta_all = _delta_powers_dev(npc, str(dev))
+    omega_row = omega_powers_dev(k, str(dev))
+    delta_all = delta_powers_dev(npc, str(dev))
 
     def id_cols_dev(cols: list[int]) -> torch.Tensor:
         return _mul(delta_all[:, cols][:, :, None], omega_row)

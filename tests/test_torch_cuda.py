@@ -28,7 +28,7 @@ from paillier_halo2_tpu_torch.gadgets.range import RangeChip
 from paillier_halo2_tpu_torch.harness.circuits import PaillierEncryptionInput, paillier_enc_test
 from paillier_halo2_tpu_torch.mock import prover as mock
 from paillier_halo2_tpu_torch.msm.pippenger import msm_packed
-from paillier_halo2_tpu_torch.plonk.keygen import keygen
+from paillier_halo2_tpu_torch.plonk.keygen import FIXED_CELLS, keygen
 from paillier_halo2_tpu_torch.plonk.prover import create_proof
 from paillier_halo2_tpu_torch.plonk.serialize import (
     load_proving_key,
@@ -538,6 +538,33 @@ def test_k10_proof_on_card_from_a_loaded_key_matches_fixture(dev, tmp_path, fixt
     proof = create_proof(pk2, table, fx["blinding_seed"].encode())
     assert proof.hex() == fx["proof_hex"]
     assert verify_proof(pk.vk, srs, proof)
+
+
+def test_k10_keygen_on_card_equals_keygen_on_the_cpu(dev):
+    """The fixed columns formed on the card (sigma gathered from the device
+    power tables, the small columns from integer arrays): every coefficient
+    and every verifying-key commitment equals the CPU key's bit for bit, and
+    both keygens count the same cells."""
+    fx = json.loads((ROOT / "tests" / "torch_fixtures" / "slice_enc_k10.json").read_text())
+    table = _k10_table(fx)
+    keys, cells = [], []
+    for d in ("cpu", dev):
+        srs = generate_srs(fx["k"], fx["srs_seed"].encode(), d)
+        before = dict(FIXED_CELLS)
+        keys.append(keygen(table, fx["k"], fx["lookup_bits"], srs))
+        cells.append({key: FIXED_CELLS[key] - before[key] for key in before})
+    cpu, card = keys
+    assert card.q_coeffs[0].device.type == "cuda"
+    names = ("q", "fixed_const", "table", "sigma", "active", "l0", "lu")
+    for name in names:
+        want, got = getattr(cpu, name + "_coeffs"), getattr(card, name + "_coeffs")
+        if isinstance(want, list):
+            want, got = torch.stack(want), torch.stack(got)
+        assert torch.equal(got.cpu(), want), name
+    assert card.vk.fixed_commitments() == cpu.vk.fixed_commitments()
+    n = 1 << fx["k"]
+    assert cells[0] == cells[1] == {"device": (cpu.vk.num_advice + 4 + cpu.vk.n_perm_cols) * n,
+                                    "host_ints": n}
 
 
 def test_native_ntt_backend_refuses_a_card_tensor(dev):
